@@ -1,0 +1,396 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (ducosy_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ducosy_tpu_torch/csrc with nvcc and
+drives the serving path the way a user does, at full model width:
+
+  1. the card (nvidia-smi name, power limit), torch/CUDA versions, and the
+     kernel build time with nvcc's register/spill report;
+  2. K2 (instance_norm) against its plain PyTorch version at the serving
+     shapes: down1 (16, 256, 256, 128) pad 0 and down2 (16, 128, 128, 256)
+     pad 1, in fp32 and bf16, with max |diff| and CUDA-event times;
+  3. K1 (residual_chain) against its plain version on a (16, 130, 130, 256)
+     carry: k = 3 and k = 1, pad 1 and pad 0, fp32 and bf16;
+  4. two seeded ResNet-9 + CBAM generators (1 channel, base 64) in
+     DualGeneratorEngine.run_patient on a 32-slice 512^2 chest phantom
+     with chunk 16: the launch counters must show every K1 and K2 call of
+     the serving path; fp32 through the kernels must match the fp32 plain
+     path to 1 stored unit on >= 99.9% of voxels; the bf16 kernel path's
+     |dHU| to the fp32 plain path and both paths' slices/s are printed;
+  5. the port's generate CLI on one synthetic 32-slice 512^2 DICOM patient
+     with .pth checkpoints, read back from disk.
+
+Any failure exits non-zero before the result lines. On success the last
+three lines are the card, a JSON object with one record per kernel, and
+  {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Exits non-zero without a CUDA device, and outside a checkout of the repo.
+Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+N = 16                 # slices per generator call on the serving path
+SLICES, SIZE = 32, 512  # phantom patient
+SEED = 0
+K2_CASES = (("down1", (N, 256, 256, 128), 0), ("down2", (N, 128, 128, 256), 1))
+K1_SHAPE = (N, 128, 128, 256)   # carry interior; R = C / 16
+
+# Tolerances, set from the dtypes before any run:
+#  K2 fp32: both versions use fp32 centred statistics; only the summation
+#    order differs (~1e-6 relative).
+#  K2 bf16: both normalize the same bf16 input in fp32 and round once, so
+#    they differ by at most one bf16 ulp (2^-7 relative).
+#  K1 fp32: exact-FMA kernel vs cuDNN fp32 (TF32 off) over three blocks;
+#    summation order only.
+#  K1 bf16: the plain version also rounds each conv output to bf16 before
+#    its norm, the kernel normalizes the fp32 accumulator (as the TPU
+#    kernel does): a few bf16 ulps per block, three blocks deep.
+TOL = {("k2", "float32"): (1e-4, 1e-4), ("k2", "bfloat16"): (1e-2, 1e-2),
+       ("k1", "float32"): (1e-3, 1e-3), ("k1", "bfloat16"): (0.125, 0.02)}
+K1_BF16_MEAN_TOL = 0.01
+STORED_UNIT_SHARE = 0.999   # fp32 kernel vs plain: |d| <= 1 on this share
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean milliseconds per call by CUDA events, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def compare(got, ref, atol: float, rtol: float):
+    import torch
+
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        fail(f"shape/dtype {tuple(got.shape)} {got.dtype} vs "
+             f"{tuple(ref.shape)} {ref.dtype}")
+    g, r = got.float(), ref.float()
+    if not torch.isfinite(g).all():
+        fail("non-finite kernel output")
+    err = (g - r).abs()
+    ok = bool((err <= atol + rtol * r.abs()).all())
+    return ok, float(err.max()), float(err.mean())
+
+
+def check_instance_norm(k2, dev, records):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    failures = []
+    for name, shape, pad in K2_CASES:
+        c = shape[-1]
+        offset = torch.randn(c, generator=gen, device=dev) * 2.0
+        scale = torch.rand(c, generator=gen, device=dev) * 1.5 + 0.5
+        base = torch.randn(shape, generator=gen, device=dev) * scale + offset
+        for dtype in (torch.float32, torch.bfloat16):
+            x = base.to(dtype)
+            got = k2.instance_norm(x, relu=True, pad=pad)
+            ref = k2.instance_norm_plain(x, relu=True, pad=pad)
+            torch.cuda.synchronize()
+            atol, rtol = TOL[("k2", str(dtype)[6:])]
+            ok, emax, emean = compare(got, ref, atol, rtol)
+            ms = cuda_ms(lambda: k2.instance_norm(x, relu=True, pad=pad), 20)
+            plain_ms = cuda_ms(
+                lambda: k2.instance_norm_plain(x, relu=True, pad=pad), 20)
+            log(f"K2 {name} {tuple(shape)} pad={pad} {str(dtype)[6:]}: "
+                f"max|d|={emax:.3e} mean|d|={emean:.3e} (atol {atol}, rtol "
+                f"{rtol}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+                f"{'ok' if ok else 'FAIL'}")
+            records[("k2", name, str(dtype)[6:])] = dict(
+                max_abs_err=emax, ms=ms, plain_ms=plain_ms)
+            if not ok:
+                failures.append(f"K2 {name} {dtype}")
+    if failures:
+        fail(f"kernel disagrees with its plain version: {failures}")
+
+
+def check_residual_chain(k1, dev, records):
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    n, hw, _, c = K1_SHAPE
+    r = c // 16
+    x = torch.randn((n, c, hw, hw), generator=gen, device=dev)
+    xp = F.pad(x, (1, 1, 1, 1), mode="reflect").permute(0, 2, 3, 1) \
+        .contiguous()
+    kmax = 3
+    weights = (
+        torch.randn((kmax, 3, 3, c, c), generator=gen, device=dev) * 0.02,
+        torch.randn((kmax, 3, 3, c, c), generator=gen, device=dev) * 0.02,
+        torch.randn((kmax, c, r), generator=gen, device=dev) * 0.1,
+        torch.randn((kmax, r, c), generator=gen, device=dev) * 0.1,
+        torch.randn((kmax, 7, 7, 2, 1), generator=gen, device=dev) * 0.1)
+    failures = []
+    for dtype in (torch.float32, torch.bfloat16):
+        carry = xp.to(dtype)
+        for k in (3, 1):
+            ws = [w[:k] for w in weights]
+            for pad in (1, 0):
+                got = k1.residual_chain(carry, *ws, pad=pad)
+                ref = k1.residual_chain_plain(carry, *ws, pad=pad)
+                torch.cuda.synchronize()
+                dname = str(dtype)[6:]
+                atol, rtol = TOL[("k1", dname)]
+                ok, emax, emean = compare(got, ref, atol, rtol)
+                if dtype == torch.bfloat16 and emean > K1_BF16_MEAN_TOL:
+                    ok = False
+                line = (f"K1 k={k} pad={pad} {tuple(carry.shape)} {dname}: "
+                        f"max|d|={emax:.3e} mean|d|={emean:.3e} (atol {atol},"
+                        f" rtol {rtol})")
+                if pad == 1 or k == 3:
+                    ms = cuda_ms(lambda: k1.residual_chain(carry, *ws,
+                                                           pad=pad), 3)
+                    plain_ms = cuda_ms(lambda: k1.residual_chain_plain(
+                        carry, *ws, pad=pad), 3)
+                    line += f" kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+                    records[("k1", k, pad, dname)] = dict(
+                        max_abs_err=emax, ms=ms, plain_ms=plain_ms)
+                log(line + (" ok" if ok else " FAIL"))
+                if not ok:
+                    failures.append(f"K1 k={k} pad={pad} {dname}")
+    if failures:
+        fail(f"kernel disagrees with its plain version: {failures}")
+
+
+def chest_phantom(z: int, size: int, seed: int) -> np.ndarray:
+    """Stored int16 slices (HU + 1024): air, body, two lungs with vessels,
+    a contrast-free aorta, spine; structure drifts with z; 12 HU noise."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:size, :size].astype(np.float32) / size
+    vol = np.empty((z, size, size), np.int16)
+    for i in range(z):
+        f = i / max(z - 1, 1)
+        hu = np.full((size, size), -1024.0, np.float32)
+        body = ((yy - 0.5) / 0.42) ** 2 + ((xx - 0.5) / 0.46) ** 2 < 1
+        hu[body] = 40.0
+        for cx in (0.31, 0.69):
+            lung = ((yy - 0.48) / (0.25 + 0.03 * f)) ** 2 + \
+                   ((xx - cx) / 0.15) ** 2 < 1
+            hu[lung] = -850.0
+            for k in range(6):
+                vy, vx = 0.35 + 0.05 * k, cx + 0.04 * np.sin(k + 3 * f)
+                hu[(yy - vy) ** 2 + (xx - vx) ** 2 < 0.0001] = 30.0
+        hu[(yy - 0.45) ** 2 + (xx - 0.5) ** 2 < 0.003] = 45.0
+        hu[(np.abs(xx - 0.5) < 0.05) & (yy > 0.76) & body] = 650.0
+        hu += rng.normal(0.0, 12.0, hu.shape).astype(np.float32)
+        vol[i] = np.clip(hu + 1024.0, 0, 4095).astype(np.int16)
+    return vol
+
+
+def run_engine_phase(k1, k2, dev, records):
+    import torch
+
+    from ducosy_tpu_torch.infer.engine import DualGeneratorEngine
+    from ducosy_tpu_torch.models.convert import init_generator_state_dict
+
+    st = init_generator_state_dict(SEED + 10)
+    lung = init_generator_state_dict(SEED + 11)
+    vol = chest_phantom(SLICES, SIZE, SEED)
+    n_chunks = -(-SLICES // N)
+
+    def engine(dtype, trunk):
+        return DualGeneratorEngine(st, lung, img_size=SIZE,
+                                   compute_dtype=dtype, device=dev,
+                                   trunk=trunk)
+
+    def run(eng):
+        t0 = time.perf_counter()
+        out = eng.run_patient(vol, 1.0, -1024.0, chunk=N)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    fast = engine(torch.bfloat16, "chain")
+    run(fast)                                 # warm-up: cuDNN autotune etc.
+    k1.residual_chain.launches = 0
+    k2.instance_norm.launches = 0
+    out_fast, _ = run(fast)                   # the main path, counted
+    launches = {"residual_chain": k1.residual_chain.launches,
+                "instance_norm": k2.instance_norm.launches}
+    want = {"residual_chain": 2 * 3 * n_chunks,
+            "instance_norm": 2 * 2 * n_chunks}
+    log(f"engine bf16 chain: launches {launches} (expected {want})")
+    if launches != want:
+        fail(f"serving path launch counts {launches} != {want}")
+    if out_fast.dtype != np.int16 or out_fast.shape != vol.shape:
+        fail(f"engine output {out_fast.dtype} {out_fast.shape}")
+    records["launches"] = launches
+
+    plain = engine(torch.bfloat16, "plain")
+    run(plain)
+    rounds = {"chain": [], "plain": []}
+    for _ in range(3):                        # alternate the two paths
+        for name, eng in (("chain", fast), ("plain", plain)):
+            rounds[name].append(SLICES / run(eng)[1])
+    for name, rates in rounds.items():
+        log(f"engine bf16 {name}: slices/s median "
+            f"{statistics.median(rates):.2f} rounds "
+            f"{[round(v, 2) for v in rates]} ({SLICES} x {SIZE}^2, chunk {N},"
+            f" incl. upload, postprocess, download)")
+    records["slices_per_s"] = {k: statistics.median(v)
+                               for k, v in rounds.items()}
+    del plain
+
+    out32, _ = run(engine(torch.float32, "chain"))
+    ref32, t32 = run(engine(torch.float32, "plain"))
+    d = np.abs(out32.astype(np.int32) - ref32.astype(np.int32))
+    share = float(np.mean(d <= 1))
+    log(f"engine fp32 chain vs fp32 plain: |d|<=1 on {share:.6f} of voxels, "
+        f"max |d| {int(d.max())} stored units")
+    if share < STORED_UNIT_SHARE:
+        fail(f"fp32 kernel path vs plain: {share} < {STORED_UNIT_SHARE}")
+    dhu = np.abs(out_fast.astype(np.float64) - ref32.astype(np.float64))
+    log(f"engine bf16 chain vs fp32 plain: |dHU| mean {dhu.mean():.4f} p99 "
+        f"{np.percentile(dhu, 99):.4f} max {dhu.max():.1f}")
+    return st, lung
+
+
+def run_cli_phase(k1, k2, st, lung):
+    import torch
+
+    from ducosy_tpu.dicom import dcmread
+    from ducosy_tpu.dicom.codec import new_ct_dataset
+    from ducosy_tpu_torch.cli import generate
+
+    vol = chest_phantom(SLICES, SIZE, SEED + 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        ncct = Path(tmp, "input", "Smoke", "patient00", "POST VUE")
+        ncct.mkdir(parents=True)
+        for i, sl in enumerate(vol):
+            ds = new_ct_dataset(SIZE, SIZE, instance_number=i + 1,
+                                series_description="POST VUE")
+            ds.set_pixel_array(sl.astype(np.uint16))
+            ds.save_as(str(ncct / f"{i:04d}.dcm"))
+        paths = {}
+        for name, sd in (("st", st), ("lung", lung)):
+            paths[name] = str(Path(tmp, f"{name}.pth"))
+            torch.save({k: torch.from_numpy(v) for k, v in sd.items()},
+                       paths[name])
+        k1.residual_chain.launches = 0
+        k2.instance_norm.launches = 0
+        t0 = time.perf_counter()
+        done = generate.main([
+            "--input_dir_root", str(Path(tmp, "input")),
+            "--output_dir_root", str(Path(tmp, "output")),
+            "--dataset_names", "Smoke", "--img_size", str(SIZE),
+            "--slice_batch", str(N), "--soft_tissue_model", paths["st"],
+            "--lung_model", paths["lung"]])
+        secs = time.perf_counter() - t0
+        n_chunks = -(-SLICES // N)
+        got = (k1.residual_chain.launches, k2.instance_norm.launches)
+        if done != 1 or got != (2 * 3 * n_chunks, 2 * 2 * n_chunks):
+            fail(f"CLI: {done} patients, launches {got}")
+        out_dir = Path(tmp, "output", "Smoke", "patient00")
+        files = sorted(out_dir.glob("*.dcm"))
+        if len(files) != SLICES:
+            fail(f"CLI wrote {len(files)} slices, expected {SLICES}")
+        for f in (files[0], files[-1]):
+            ds = dcmread(str(f))
+            if ds.pixel_array.shape != (SIZE, SIZE) or \
+                    ds.SeriesDescription != "DuCoSyGAN sCECT v2":
+                fail(f"CLI output {f.name}: {ds.pixel_array.shape} "
+                     f"{ds.SeriesDescription!r}")
+    log(f"CLI: 1 patient, {SLICES} slices written and read back in "
+        f"{secs:.2f} s (incl. engine build), launches K1 {got[0]} K2 {got[1]}")
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke test needs an "
+             "NVIDIA card")
+    if not (ROOT / "ducosy_tpu_torch" / "__init__.py").is_file():
+        fail(f"ducosy_tpu_torch/ not found beside {Path(__file__).name}: "
+             "run it from a checkout of the repository")
+    sys.path.insert(0, str(ROOT))
+    # fp32 means fp32 in every comparison below (cuDNN defaults to TF32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    card = gpu_line()
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} CUDA {torch.version.cuda} python "
+        f"{sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
+
+    from ducosy_tpu_torch.ops.kernels import _build
+    from ducosy_tpu_torch.ops.kernels import instance_norm as k2
+    from ducosy_tpu_torch.ops.kernels import residual_chain as k1
+
+    for name in ("instance_norm", "residual_chain"):
+        t0 = time.perf_counter()
+        _build.load_library(name)
+        log(f"built {name}.cu in {time.perf_counter() - t0:.2f} s "
+            f"-> {_build.library_path(name).name}")
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or ("spill" in line and
+                                       "0 bytes spill stores" not in line):
+                log(f"  nvcc: {line.strip()}")
+
+    records: dict = {}
+    check_instance_norm(k2, dev, records)
+    check_residual_chain(k1, dev, records)
+    st, lung = run_engine_phase(k1, k2, dev, records)
+    run_cli_phase(k1, k2, st, lung)
+    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
+        fail("JAX was imported")
+
+    k1_rec = records[("k1", 3, 1, "bfloat16")]
+    k2_rec = records[("k2", "down2", "bfloat16")]
+    kernels = [
+        dict(name="residual_chain", route="cuda",
+             source="ducosy_tpu_torch/csrc/residual_chain.cu",
+             replaces="ducosy_tpu/ops/pallas/conv_in.py:399",
+             launches=records["launches"]["residual_chain"], **k1_rec),
+        dict(name="instance_norm", route="cuda",
+             source="ducosy_tpu_torch/csrc/instance_norm.cu",
+             replaces="ducosy_tpu/ops/pallas/instance_norm.py:206",
+             launches=records["launches"]["instance_norm"], **k2_rec),
+    ]
+    log(json.dumps({"kernels": kernels}))
+    log(card)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

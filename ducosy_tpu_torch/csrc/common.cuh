@@ -1,0 +1,154 @@
+// Shared device code of the port's InstanceNorm-bearing kernels (K1, K2).
+//
+// Whole-image reductions are split into per-tile partials and an apply
+// step: a tile of TILE_M pixels x TILE_N channels reports its per-channel
+// mean and centred sum of squares (M2), and finalize_stats merges the
+// tiles of each (sample, channel) with Chan's parallel formula. That keeps
+// the centred variance of the reference composition (conv_in.py:79-83,
+// instance_norm.py:349-359) without a second pass over the image.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace ducosy {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int TILE_M = 128;          // pixels per tile (flattened h*W + w)
+constexpr int TILE_N = 64;           // channels per tile
+constexpr int CS_LD = TILE_N + 4;    // fp32 row stride of a tile in smem
+constexpr int TILE_SMEM = TILE_M * CS_LD * 4;   // 34,816 bytes
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
+  return __float2bfloat16(v);   // round to nearest even
+}
+
+// Round an fp32 value to the io type and back: the reference casts its
+// intermediates to the io dtype at these points (conv_in.py:176-219).
+template <typename T> __device__ __forceinline__ float round_io(float v) {
+  return to_f32(from_f32<T>(v));
+}
+
+// Reflect index i into [0, n) without repeating the edge
+// (ReflectionPad2d; valid for -n < i < 2n - 1).
+__device__ __forceinline__ int reflect(int i, int n) {
+  if (i < 0) i = -i;
+  if (i >= n) i = 2 * (n - 1) - i;
+  return i;
+}
+
+// Per-channel partials of one tile held in shared memory as
+// cs[row * CS_LD + channel], `rows` valid rows: mean, centred M2 and
+// (if pmax) max, for TILE_N channels, written at pmean[base + channel].
+__device__ __forceinline__ void tile_stats(const float* cs, int rows,
+                                           float* pmean, float* pm2,
+                                           float* pmax, size_t base) {
+  const int c = threadIdx.x;
+  if (c >= TILE_N) return;
+  float s = 0.f, mx = -INFINITY;
+  for (int r = 0; r < rows; ++r) {
+    const float v = cs[r * CS_LD + c];
+    s += v;
+    mx = fmaxf(mx, v);
+  }
+  const float m = s / rows;
+  float q = 0.f;
+  for (int r = 0; r < rows; ++r) {
+    const float d = cs[r * CS_LD + c] - m;
+    q += d * d;
+  }
+  pmean[base + c] = m;
+  pm2[base + c] = q;
+  if (pmax) pmax[base + c] = mx;
+}
+
+// Merge the `tiles` partials of channel ci of sample ni (Chan et al.):
+// returns the mean in *mean and the centred M2 in *m2; *mx gets the max
+// when pmax is given.
+__device__ __forceinline__ void merge_tiles(const float* pmean,
+                                            const float* pm2,
+                                            const float* pmax, int ni, int ci,
+                                            int tiles, int hw, int c,
+                                            float* mean, float* m2,
+                                            float* mx) {
+  float cnt = 0.f, m = 0.f, q = 0.f, x = -INFINITY;
+  for (int t = 0; t < tiles; ++t) {
+    const size_t k = ((size_t)ni * tiles + t) * c + ci;
+    const float nb = (float)min(TILE_M, hw - t * TILE_M);
+    const float tot = cnt + nb;
+    const float d = pmean[k] - m;
+    m += d * (nb / tot);
+    q += pm2[k] + d * d * (cnt * nb / tot);
+    cnt = tot;
+    if (pmax) x = fmaxf(x, pmax[k]);
+  }
+  *mean = m;
+  *m2 = q;
+  *mx = x;
+}
+
+__device__ __forceinline__ float inv_std(float m2, int hw, float eps) {
+  return 1.f / sqrtf(fmaxf(m2 / hw, 0.f) + eps);
+}
+
+// (sample, channel) mean and 1/sqrt(var + eps) from the tile partials.
+__global__ void finalize_stats(const float* __restrict__ pmean,
+                               const float* __restrict__ pm2,
+                               float* __restrict__ mean,
+                               float* __restrict__ rstd, int n, int tiles,
+                               int c, int hw, float eps) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n * c) return;
+  float m, q, unused;
+  merge_tiles(pmean, pm2, nullptr, idx / c, idx % c, tiles, hw, c, &m, &q,
+              &unused);
+  mean[idx] = m;
+  rstd[idx] = inv_std(q, hw, eps);
+}
+
+// y = (x - mean) * rstd, optional ReLU, written reflect-padded by `pad`:
+// one block per output pixel (grid w+2p, h+2p, n), threads over channels.
+// x is (n, h*w, c); out is (n, h+2p, w+2p, c).
+template <typename TIn, typename TOut>
+__global__ void norm_apply(const TIn* __restrict__ x,
+                           const float* __restrict__ mean,
+                           const float* __restrict__ rstd,
+                           TOut* __restrict__ out, int h, int w, int c,
+                           int pad, int relu) {
+  const int wo = blockIdx.x, ho = blockIdx.y, ni = blockIdx.z;
+  const int hi = reflect(ho - pad, h), wi = reflect(wo - pad, w);
+  const TIn* src = x + (((size_t)ni * h + hi) * w + wi) * c;
+  TOut* dst = out + (((size_t)ni * (h + 2 * pad) + ho) * (w + 2 * pad) + wo) * c;
+  const float* mu = mean + (size_t)ni * c;
+  const float* rs = rstd + (size_t)ni * c;
+  for (int k = threadIdx.x; k < c; k += blockDim.x) {
+    float y = (to_f32(src[k]) - mu[k]) * rs[k];
+    if (relu) y = fmaxf(y, 0.f);
+    dst[k] = from_f32<TOut>(y);
+  }
+}
+
+constexpr int APPLY_THREADS = 128;
+
+}  // namespace ducosy
+
+#define DUCOSY_CHECK_LAUNCH()                     \
+  do {                                            \
+    cudaError_t e_ = cudaGetLastError();          \
+    if (e_ != cudaSuccess) return (int)e_;        \
+  } while (0)
+
+// Each library is one translation unit that includes this header once.
+extern "C" const char* ducosy_error_string(int status) {
+  return cudaGetErrorString((cudaError_t)status);
+}

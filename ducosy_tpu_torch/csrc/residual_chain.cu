@@ -1,0 +1,451 @@
+// K1: one CBAM residual block on a reflect-padded NHWC carry, for Hopper
+// (sm_90a). The Python wrapper (ops/kernels/residual_chain.py) runs k of
+// these back to back; k = 3 is the serving path's chain3, k = 1 is K6.
+//
+// Replaces: residual_chain_pallas (ducosy_tpu/ops/pallas/conv_in.py:399,
+// pallas_call at :433) with quant=False, and residual_block_pallas
+// (conv_in.py:308). Each block computes
+//   t   = ReflectPad1(ReLU(IN(conv3x3_valid(xp, wa))))
+//   y   = IN(conv3x3_valid(t, wb))
+//   y  *= sigmoid(MLP(avgpool(y)) + MLP(maxpool(y)))          channel gate
+//   y  *= sigmoid(conv7x7_zero([mean_c(y), max_c(y)]))         spatial gate
+//   out = ReflectPad_pad(xp[1:-1, 1:-1] + y)
+// with fp32 accumulators and statistics, and the io dtype (bf16 or fp32)
+// at the same rounding points as the reference (conv_in.py:162-219).
+//
+// What bounds it: each 3x3 conv at the trunk shape (128x128 pixels,
+// 256 -> 256 channels) is 2*128*128*256*256*9 = 19.3 GFLOP per sample,
+// against ~17 MB of bf16 activations: compute-bound, so the convs run on
+// the tensor cores (WMMA bf16 m16n16k16 with fp32 accumulate; the fp32
+// parity mode uses exact FMA on the CUDA cores).
+//
+// Design: the TPU kernel keeps one sample's whole 130x130x256 carry in
+// VMEM (8.6 MB); a Hopper block has at most 227 KB of shared memory. So a
+// block is a short sequence of launches, and every whole-image reduction
+// is split into per-tile partials plus a later apply step:
+//   1. conv1: implicit-GEMM tile of 128 pixels x 64 output channels; the
+//      epilogue writes the fp32 accumulator and per-tile (mean, M2);
+//   2. finalize: Chan-merge the tiles -> per-(n, c) mean, 1/std;
+//   3. apply: IN + ReLU + reflect-pad 1 -> t (io dtype);
+//   4. conv2 on t, epilogue also emits the per-tile channel max;
+//   5. channel gate, one block per sample: finalize, max of the
+//      normalized output = (max acc - mean) * rstd exactly (rstd > 0,
+//      rounding is monotone), the C -> C/16 -> C MLP, sigmoid;
+//   6. spatial tail: a block owns a 16x32 pixel tile with all channels,
+//      takes the channel mean/max of the gated output over the tile plus
+//      a halo of 3, runs the 7x7 zero-padded conv (98 taps ordered
+//      avg | max, as at conv_in.py:428-430), sigmoid, adds the skip from
+//      the carry's interior and writes the reflect-padded output.
+// What this simple design gives up: the conv accumulator and t round-trip
+// device memory between launches (the TPU kernel never leaves VMEM), the
+// conv main loop has no cp.async/TMA pipelining and uses mma.sync-class
+// WMMA rather than wgmma, and the tail re-reads the halo. Later work:
+// wgmma + TMA with persistent tiles, and fusing apply into conv2's loads.
+#include <mma.h>
+
+#include "common.cuh"
+
+namespace ducosy {
+namespace {
+
+using namespace nvcuda;
+
+constexpr int CONV_THREADS = 256;
+constexpr int BK = 32;               // bf16 input channels per K step
+constexpr int AS_LD = BK + 8;        // bf16 row stride of the A tile (80 B)
+constexpr int BS_LD = TILE_N + 8;    // bf16 row stride of the B tile (144 B)
+constexpr int BKF = 16;              // fp32 input channels per K step
+
+// Epilogue shared by both convs: the accumulator tile is in cs (fp32,
+// row = pixel, column = output channel). Write it to acc (n, h*w, c) and
+// emit the tile's per-channel partials.
+__device__ __forceinline__ void conv_epilogue(const float* cs, int rows,
+                                              float* acc, float* pmean,
+                                              float* pm2, float* pmax,
+                                              int ni, int tile, int tiles,
+                                              int m0, int co0, int hw, int c) {
+  for (int i = threadIdx.x; i < TILE_M * (TILE_N / 4); i += CONV_THREADS) {
+    const int r = i / (TILE_N / 4), v = i % (TILE_N / 4);
+    if (r < rows) {
+      const float4 val = *reinterpret_cast<const float4*>(cs + r * CS_LD + v * 4);
+      *reinterpret_cast<float4*>(acc + ((size_t)ni * hw + m0 + r) * c + co0 +
+                                 v * 4) = val;
+    }
+  }
+  tile_stats(cs, rows, pmean, pm2, pmax, ((size_t)ni * tiles + tile) * c + co0);
+}
+
+// 3x3 VALID conv, bf16 in, fp32 out. xp (n, h+2, w+2, c); wt (9*c, c) as
+// (tap, cin, cout). Grid (c / TILE_N, tiles, n); 8 warps as 4 (pixels) x
+// 2 (channels), each warp a 32x32 block of 2x2 WMMA fragments.
+__global__ void __launch_bounds__(CONV_THREADS)
+conv3x3_bf16(const bf16* __restrict__ xp, const bf16* __restrict__ wt,
+             float* __restrict__ acc, float* __restrict__ pmean,
+             float* __restrict__ pm2, float* __restrict__ pmax, int h, int w,
+             int c) {
+  __shared__ __align__(128) unsigned char smem[TILE_SMEM];
+  bf16* as = reinterpret_cast<bf16*>(smem);          // TILE_M x AS_LD
+  bf16* bs = as + TILE_M * AS_LD;                     // BK x BS_LD
+  float* cs = reinterpret_cast<float*>(smem);         // aliases as/bs after
+
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int wm = warp % 4, wn = warp / 4;
+  const int co0 = blockIdx.x * TILE_N, tile = blockIdx.y, ni = blockIdx.z;
+  const int hw = h * w, wp = w + 2, m0 = tile * TILE_M;
+  const int rows = min(TILE_M, hw - m0);
+
+  // A loads: rows tid/4 and tid/4 + 64 of the tile, 16-byte vector tid%4
+  const int a_row = tid / 4, a_vec = tid % 4;
+  const bf16* a_src[2];
+  bool a_ok[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int m = m0 + a_row + 64 * i;
+    a_ok[i] = m < hw;
+    const int mm = a_ok[i] ? m : 0;
+    a_src[i] = xp + (((size_t)ni * (h + 2) + mm / w) * wp + mm % w) * c +
+               a_vec * 8;
+  }
+  // B loads: row tid/8 of the K step, 16-byte vector tid%8
+  const int b_row = tid / 8, b_vec = tid % 8;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(fc[i][j], 0.f);
+
+  for (int tap = 0; tap < 9; ++tap) {
+    const size_t tap_off = ((size_t)(tap / 3) * wp + tap % 3) * c;
+    for (int k0 = 0; k0 < c; k0 += BK) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (a_ok[i]) v = *reinterpret_cast<const uint4*>(a_src[i] + tap_off + k0);
+        *reinterpret_cast<uint4*>(as + (a_row + 64 * i) * AS_LD + a_vec * 8) = v;
+      }
+      *reinterpret_cast<uint4*>(bs + b_row * BS_LD + b_vec * 8) =
+          *reinterpret_cast<const uint4*>(
+              wt + ((size_t)tap * c + k0 + b_row) * c + co0 + b_vec * 8);
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          wmma::load_matrix_sync(fa[i], as + (wm * 32 + i * 16) * AS_LD + kk,
+                                 AS_LD);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::load_matrix_sync(fb[j], bs + kk * BS_LD + wn * 32 + j * 16,
+                                 BS_LD);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            wmma::mma_sync(fc[i][j], fa[i], fb[j], fc[i][j]);
+      }
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(cs + (wm * 32 + i * 16) * CS_LD + wn * 32 + j * 16,
+                              fc[i][j], CS_LD, wmma::mem_row_major);
+  __syncthreads();
+  conv_epilogue(cs, rows, acc, pmean, pm2, pmax, ni, tile, gridDim.y, m0, co0,
+                hw, c);
+}
+
+// 3x3 VALID conv in exact fp32 (FMA on the CUDA cores): the parity mode.
+// Same tiling as the bf16 kernel; each thread owns 8 pixels x 4 channels.
+__global__ void __launch_bounds__(CONV_THREADS)
+conv3x3_f32(const float* __restrict__ xp, const float* __restrict__ wt,
+            float* __restrict__ acc, float* __restrict__ pmean,
+            float* __restrict__ pm2, float* __restrict__ pmax, int h, int w,
+            int c) {
+  __shared__ __align__(128) unsigned char smem[TILE_SMEM];
+  float* as = reinterpret_cast<float*>(smem);         // BKF x TILE_M (k-major)
+  float* bs = as + BKF * TILE_M;                       // BKF x TILE_N
+  float* cs = reinterpret_cast<float*>(smem);
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int co0 = blockIdx.x * TILE_N, tile = blockIdx.y, ni = blockIdx.z;
+  const int hw = h * w, wp = w + 2, m0 = tile * TILE_M;
+  const int rows = min(TILE_M, hw - m0);
+
+  const int a_row = tid / 4, a_vec = tid % 4;         // rows a_row, a_row+64
+  const float* a_src[2];
+  bool a_ok[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int m = m0 + a_row + 64 * i;
+    a_ok[i] = m < hw;
+    const int mm = a_ok[i] ? m : 0;
+    a_src[i] = xp + (((size_t)ni * (h + 2) + mm / w) * wp + mm % w) * c +
+               a_vec * 4;
+  }
+  const int b_row = tid / 16, b_vec = tid % 16;
+
+  float r[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) r[i][j] = 0.f;
+
+  for (int tap = 0; tap < 9; ++tap) {
+    const size_t tap_off = ((size_t)(tap / 3) * wp + tap % 3) * c;
+    for (int k0 = 0; k0 < c; k0 += BKF) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (a_ok[i]) v = *reinterpret_cast<const float4*>(a_src[i] + tap_off + k0);
+        const int m = a_row + 64 * i, k = a_vec * 4;
+        as[(k + 0) * TILE_M + m] = v.x;
+        as[(k + 1) * TILE_M + m] = v.y;
+        as[(k + 2) * TILE_M + m] = v.z;
+        as[(k + 3) * TILE_M + m] = v.w;
+      }
+      *reinterpret_cast<float4*>(bs + b_row * TILE_N + b_vec * 4) =
+          *reinterpret_cast<const float4*>(
+              wt + ((size_t)tap * c + k0 + b_row) * c + co0 + b_vec * 4);
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < BKF; ++k) {
+        const float4 a0 = *reinterpret_cast<const float4*>(as + k * TILE_M + ty * 8);
+        const float4 a1 = *reinterpret_cast<const float4*>(as + k * TILE_M + ty * 8 + 4);
+        const float4 b = *reinterpret_cast<const float4*>(bs + k * TILE_N + tx * 4);
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) r[i][j] = fmaf(av[i], bv[j], r[i][j]);
+      }
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    *reinterpret_cast<float4*>(cs + (ty * 8 + i) * CS_LD + tx * 4) =
+        make_float4(r[i][0], r[i][1], r[i][2], r[i][3]);
+  __syncthreads();
+  conv_epilogue(cs, rows, acc, pmean, pm2, pmax, ni, tile, gridDim.y, m0, co0,
+                hw, c);
+}
+
+// Channel gate, one block of c threads per sample: conv2 statistics,
+// the max-pooled normalized output, the C -> R -> C MLP and the sigmoid.
+// The avg-pooled path is zero: an instance-normalized channel has mean 0,
+// so relu(avg @ w1) @ w2 vanishes (the reference computes it from the
+// rounded y, where it is below 1e-6 of the max path).
+template <typename T>
+__global__ void channel_gate(const float* __restrict__ pmean,
+                             const float* __restrict__ pm2,
+                             const float* __restrict__ pmax,
+                             const float* __restrict__ w1,
+                             const float* __restrict__ w2,
+                             float* __restrict__ mean, float* __restrict__ rstd,
+                             float* __restrict__ gate, int tiles, int hw,
+                             int c, int r, float eps) {
+  extern __shared__ float sh[];
+  float* mx = sh;          // c
+  float* hid = sh + c;     // r
+  const int ni = blockIdx.x, ci = threadIdx.x;
+  float m, q, x;
+  merge_tiles(pmean, pm2, pmax, ni, ci, tiles, hw, c, &m, &q, &x);
+  const float rs = inv_std(q, hw, eps);
+  mean[ni * c + ci] = m;
+  rstd[ni * c + ci] = rs;
+  mx[ci] = round_io<T>((x - m) * rs);
+  __syncthreads();
+  if (ci < r) {
+    float s = 0.f;
+    for (int k = 0; k < c; ++k) s += mx[k] * w1[k * r + ci];
+    hid[ci] = fmaxf(s, 0.f);
+  }
+  __syncthreads();
+  float g = 0.f;
+  for (int j = 0; j < r; ++j) g += hid[j] * w2[j * c + ci];
+  gate[ni * c + ci] = round_io<T>(1.f / (1.f + expf(-g)));
+}
+
+constexpr int TAIL_TH = 16, TAIL_TW = 32;   // interior pixel tile
+constexpr int SA_K = 7, SA_R = 3;           // spatial-gate conv
+constexpr int HALO_H = TAIL_TH + 2 * SA_R, HALO_W = TAIL_TW + 2 * SA_R;
+constexpr int TAIL_THREADS = 256, TAIL_WARPS = TAIL_THREADS / 32;
+
+// The gated, normalized conv2 output t of channel k at one pixel.
+template <typename T>
+__device__ __forceinline__ float gated(const float* a, const float* mu,
+                                       const float* rs, const float* gc,
+                                       int k) {
+  const float y = round_io<T>((a[k] - mu[k]) * rs[k]);
+  return round_io<T>(y * gc[k]);
+}
+
+// Spatial gate + skip + reflect-padded write. Grid (ceil(w/32),
+// ceil(h/16), n); dynamic shared memory holds 3*c floats.
+template <typename T>
+__global__ void __launch_bounds__(TAIL_THREADS)
+spatial_tail(const float* __restrict__ acc, const float* __restrict__ mean,
+             const float* __restrict__ rstd, const float* __restrict__ gate,
+             const T* __restrict__ xp, const float* __restrict__ wsa,
+             T* __restrict__ out, int h, int w, int c, int pad) {
+  __shared__ float s_avg[HALO_H * HALO_W], s_max[HALO_H * HALO_W];
+  __shared__ float s_gs[TAIL_TH * TAIL_TW], s_w[2 * SA_K * SA_K];
+  extern __shared__ float s_chan[];
+  float* mu = s_chan;
+  float* rs = s_chan + c;
+  float* gc = s_chan + 2 * c;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int w0 = blockIdx.x * TAIL_TW, h0 = blockIdx.y * TAIL_TH;
+  const int ni = blockIdx.z;
+  for (int k = tid; k < c; k += TAIL_THREADS) {
+    mu[k] = mean[ni * c + k];
+    rs[k] = rstd[ni * c + k];
+    gc[k] = gate[ni * c + k];
+  }
+  for (int k = tid; k < 2 * SA_K * SA_K; k += TAIL_THREADS) s_w[k] = wsa[k];
+  __syncthreads();
+
+  // channel mean / max of t over the tile and its halo; zero outside the
+  // image (the 7x7 conv pads with zeros)
+  for (int p = warp; p < HALO_H * HALO_W; p += TAIL_WARPS) {
+    const int hh = h0 - SA_R + p / HALO_W, ww = w0 - SA_R + p % HALO_W;
+    float s = 0.f, m = 0.f;
+    if (hh >= 0 && hh < h && ww >= 0 && ww < w) {
+      const float* a = acc + (((size_t)ni * h + hh) * w + ww) * c;
+      m = -INFINITY;
+      for (int k = lane; k < c; k += 32) {
+        const float t = gated<T>(a, mu, rs, gc, k);
+        s += t;
+        m = fmaxf(m, t);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2) {
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      }
+      s /= c;
+    }
+    if (lane == 0) {
+      s_avg[p] = s;
+      s_max[p] = m;
+    }
+  }
+  __syncthreads();
+
+  for (int p = tid; p < TAIL_TH * TAIL_TW; p += TAIL_THREADS) {
+    const int ph = p / TAIL_TW, pw = p % TAIL_TW;
+    float g = 0.f;
+    for (int di = 0; di < SA_K; ++di)
+      for (int dj = 0; dj < SA_K; ++dj) {
+        const int q = (ph + di) * HALO_W + pw + dj;
+        g += s_w[di * SA_K + dj] * s_avg[q] +
+             s_w[SA_K * SA_K + di * SA_K + dj] * s_max[q];
+      }
+    s_gs[p] = round_io<T>(1.f / (1.f + expf(-g)));
+  }
+  __syncthreads();
+
+  // out = x_interior + t * gate_s, written at (hh+pad, ww+pad) and at the
+  // reflected border positions it also fills when pad = 1
+  const int hp = h + 2 * pad, wpo = w + 2 * pad;
+  for (int p = warp; p < TAIL_TH * TAIL_TW; p += TAIL_WARPS) {
+    const int hh = h0 + p / TAIL_TW, ww = w0 + p % TAIL_TW;
+    if (hh >= h || ww >= w) continue;
+    int rows_o[3], cols_o[3], nr = 0, nc = 0;
+    rows_o[nr++] = hh + pad;
+    cols_o[nc++] = ww + pad;
+    if (pad) {
+      if (hh == 1) rows_o[nr++] = 0;
+      if (hh == h - 2) rows_o[nr++] = h + 1;
+      if (ww == 1) cols_o[nc++] = 0;
+      if (ww == w - 2) cols_o[nc++] = w + 1;
+    }
+    const float gs = s_gs[p];
+    const float* a = acc + (((size_t)ni * h + hh) * w + ww) * c;
+    const T* x = xp + (((size_t)ni * (h + 2) + hh + 1) * (w + 2) + ww + 1) * c;
+    for (int k = lane; k < c; k += 32) {
+      const float t = gated<T>(a, mu, rs, gc, k);
+      const T o = from_f32<T>(to_f32(x[k]) + round_io<T>(t * gs));
+      for (int i = 0; i < nr; ++i)
+        for (int j = 0; j < nc; ++j)
+          out[(((size_t)ni * hp + rows_o[i]) * wpo + cols_o[j]) * c + k] = o;
+    }
+  }
+}
+
+template <typename T>
+void launch_conv(const T* xp, const T* wt, float* acc, float* pmean,
+                 float* pm2, float* pmax, int n, int h, int w, int c,
+                 int tiles, cudaStream_t s) {
+  const dim3 grid(c / TILE_N, tiles, n);
+  if constexpr (sizeof(T) == 2)
+    conv3x3_bf16<<<grid, CONV_THREADS, 0, s>>>(xp, wt, acc, pmean, pm2, pmax,
+                                               h, w, c);
+  else
+    conv3x3_f32<<<grid, CONV_THREADS, 0, s>>>(xp, wt, acc, pmean, pm2, pmax,
+                                              h, w, c);
+}
+
+template <typename T>
+int residual_block(const T* xp, const T* wa, const T* wb, const float* w1,
+                   const float* w2, const float* wsa, T* out, float* acc,
+                   T* tp, float* pmean, float* pm2, float* pmax, float* mean,
+                   float* rstd, float* gate, int n, int h, int w, int c,
+                   int r, int pad, float eps, cudaStream_t s) {
+  const int hw = h * w, tiles = (hw + TILE_M - 1) / TILE_M;
+  launch_conv<T>(xp, wa, acc, pmean, pm2, nullptr, n, h, w, c, tiles, s);
+  DUCOSY_CHECK_LAUNCH();
+  finalize_stats<<<(n * c + 255) / 256, 256, 0, s>>>(pmean, pm2, mean, rstd,
+                                                      n, tiles, c, hw, eps);
+  DUCOSY_CHECK_LAUNCH();
+  norm_apply<float, T><<<dim3(w + 2, h + 2, n), APPLY_THREADS, 0, s>>>(
+      acc, mean, rstd, tp, h, w, c, 1, 1);
+  DUCOSY_CHECK_LAUNCH();
+  launch_conv<T>(tp, wb, acc, pmean, pm2, pmax, n, h, w, c, tiles, s);
+  DUCOSY_CHECK_LAUNCH();
+  channel_gate<T><<<n, c, (c + r) * sizeof(float), s>>>(
+      pmean, pm2, pmax, w1, w2, mean, rstd, gate, tiles, hw, c, r, eps);
+  DUCOSY_CHECK_LAUNCH();
+  const dim3 tgrid((w + TAIL_TW - 1) / TAIL_TW, (h + TAIL_TH - 1) / TAIL_TH, n);
+  spatial_tail<T><<<tgrid, TAIL_THREADS, 3 * c * sizeof(float), s>>>(
+      acc, mean, rstd, gate, xp, wsa, out, h, w, c, pad);
+  DUCOSY_CHECK_LAUNCH();
+  return 0;
+}
+
+}  // namespace
+}  // namespace ducosy
+
+// One residual block: xp (n, h+2, w+2, c) -> out (n, h+2*pad, w+2*pad, c).
+// wa/wb (9*c, c) io dtype; w1 (c, r), w2 (r, c), wsa (2*49) fp32. Scratch:
+// acc (n, h*w, c) fp32, tp like xp, pmean/pm2/pmax (n, tiles, c),
+// mean/rstd/gate (n, c). Returns cudaGetLastError() of the first failing
+// launch, or 0. Launches on `stream` and does not synchronize.
+extern "C" int ducosy_residual_block(
+    const void* xp, const void* wa, const void* wb, const float* w1,
+    const float* w2, const float* wsa, void* out, float* acc, void* tp,
+    float* pmean, float* pm2, float* pmax, float* mean, float* rstd,
+    float* gate, int n, int h, int w, int c, int r, int pad, float eps,
+    int is_bf16, void* stream) {
+  using namespace ducosy;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return residual_block<bf16>(
+        static_cast<const bf16*>(xp), static_cast<const bf16*>(wa),
+        static_cast<const bf16*>(wb), w1, w2, wsa, static_cast<bf16*>(out),
+        acc, static_cast<bf16*>(tp), pmean, pm2, pmax, mean, rstd, gate, n, h,
+        w, c, r, pad, eps, s);
+  return residual_block<float>(
+      static_cast<const float*>(xp), static_cast<const float*>(wa),
+      static_cast<const float*>(wb), w1, w2, wsa, static_cast<float*>(out),
+      acc, static_cast<float*>(tp), pmean, pm2, pmax, mean, rstd, gate, n, h,
+      w, c, r, pad, eps, s);
+}

@@ -1,0 +1,286 @@
+"""The port's generator, engine and generate CLI against the JAX package,
+on the CPU (device="cpu" passed explicitly; the kernel wrappers then run
+their plain versions).
+
+Sizes are small (base 8 -> 32 trunk channels, 3-4 residual blocks, 32^2
+slices). Tolerances: generator output rtol 1e-4; int16 volumes |d| <= 1
+stored unit on >= 99.9% of voxels (the profile the JAX package's own
+serving checks use: fp32 summation order can flip a truncation).
+"""
+import functools
+import os
+import pkgutil
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ducosy_tpu.dicom import codec, dcmread
+from ducosy_tpu.infer.engine import DualGeneratorEngine as JaxEngine
+from ducosy_tpu.models.generator import Generator as JaxGenerator
+from ducosy_tpu.models.torch_import import (
+    generator_params_from_torch,
+    generator_params_to_torch,
+    load_torch_state_dict,
+)
+from ducosy_tpu_torch.cli import generate as tgen
+from ducosy_tpu_torch.infer.engine import DualGeneratorEngine
+from ducosy_tpu_torch.models.convert import (
+    generator_state_dict_from_jax,
+    init_generator_state_dict,
+)
+from ducosy_tpu_torch.models.generator import Generator
+
+sys.path.insert(0, os.path.dirname(__file__))
+from synth import chest_hu, write_dataset  # noqa: E402
+
+BASE, BLOCKS, SIZE = 8, 3, 32
+
+
+def _within_one(got, ref, share=0.999):
+    d = np.abs(got.astype(np.int32) - ref.astype(np.int32))
+    return float(np.mean(d <= 1)) >= share
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_init(blocks):
+    return jax.jit(JaxGenerator(1, blocks, BASE).init)
+
+
+def _jax_params(seed, blocks=BLOCKS):
+    p = _jax_init(blocks)(jax.random.PRNGKey(seed),
+                          jnp.zeros((1, SIZE, SIZE, 1)))
+    return jax.tree_util.tree_map(np.asarray, p["params"])
+
+
+def _volume(z=6, size=SIZE):
+    hu = np.stack([chest_hu(size, size, z=i) for i in range(z)])
+    return (hu + 1024.0).astype(np.int16)
+
+
+def _engine(st, lung, **kw):
+    kw = {"img_size": SIZE, "compute_dtype": torch.float32, "device": "cpu",
+          **kw}
+    return DualGeneratorEngine(st, lung, **kw)
+
+
+@pytest.mark.parametrize("blocks", [3, 4])
+@pytest.mark.parametrize("trunk", ["chain", "plain"])
+def test_generator_matches_jax(blocks, trunk):
+    """Port forward vs Generator.apply at fp32, with non-zero biases. At 3
+    blocks the chain trunk is one group of 3; at 4 a group of 3 plus a
+    remainder group of 1. The chain trunk drops the trunk conv biases,
+    which the following InstanceNorms cancel."""
+    rng = np.random.default_rng(blocks)
+    sd = init_generator_state_dict(blocks, 1, BASE, blocks)
+    for k in sd:
+        if k.endswith(".bias"):
+            sd[k] = rng.normal(0, 0.1, sd[k].shape).astype(np.float32)
+    params = generator_params_from_torch(sd, blocks)
+    x = rng.uniform(-1, 1, (2, SIZE, SIZE, 1)).astype(np.float32)
+    ref = JaxGenerator(1, blocks, BASE).apply({"params": params},
+                                              jnp.asarray(x))
+    gen = Generator.from_state_dict(sd, trunk=trunk).eval()
+    with torch.inference_mode():
+        got = gen(torch.from_numpy(x))
+    assert got.shape == (2, SIZE, SIZE, 1) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_state_dict_layout_matches_reference_mapping():
+    """generator_state_dict_from_jax reproduces torch_import's mapping, and
+    the result (and the seeded numpy init) loads strictly."""
+    params = _jax_params(0, blocks=2)
+    ours = generator_state_dict_from_jax(params)
+    ref = generator_params_to_torch(params, 2)
+    assert set(ours) == set(ref)
+    for k in ref:
+        np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)
+    assert set(Generator(1, 2, BASE).state_dict()) == set(ours)
+    Generator.from_state_dict(ours)
+    init = init_generator_state_dict(0, 1, BASE, 2)
+    assert {k: v.shape for k, v in init.items()} == \
+        {k: v.shape for k, v in ours.items()}
+    w = init["model.10.block.1.weight"]
+    assert abs(float(w.std()) - 0.02) < 2e-3
+    assert not any(init[k].any() for k in init if k.endswith(".bias"))
+
+
+@pytest.fixture(scope="module")
+def pth_pair(tmp_path_factory):
+    """Two JAX-initialized generators written as .pth (torch.save of
+    generator_params_to_torch output, values made tensors), and the JAX
+    engine's run_patient on them: fp32, forward='module', 6 slices,
+    chunk 4 (so the last chunk is z-padded)."""
+    d = tmp_path_factory.mktemp("pth")
+    params = [_jax_params(0), _jax_params(1)]
+    paths = []
+    for name, p in zip(("st", "lung"), params):
+        path = str(d / f"{name}.pth")
+        torch.save({k: torch.from_numpy(np.array(v)) for k, v in
+                    generator_params_to_torch(p, BLOCKS).items()}, path)
+        paths.append(path)
+    # the JAX engine's from_torch_checkpoints assumes 9 blocks; load the
+    # same files through its loader with the depth given
+    jeng = JaxEngine(*(generator_params_from_torch(load_torch_state_dict(p),
+                                                   BLOCKS) for p in paths),
+                     img_size=SIZE, compute_dtype=jnp.float32,
+                     forward="module")
+    ref = jeng.run_patient(_volume(), 1.0, -1024.0, chunk=4)
+    return params, paths, ref
+
+
+def test_run_patient_matches_jax_engine(pth_pair):
+    params, _, ref = pth_pair
+    eng = _engine(*(generator_state_dict_from_jax(p) for p in params))
+    got = eng.run_patient(_volume(), 1.0, -1024.0, chunk=4)
+    assert got.dtype == np.int16 and got.shape == ref.shape
+    assert _within_one(got, ref)
+
+
+def test_pth_checkpoints_load_in_both_engines(pth_pair):
+    params, paths, ref = pth_pair
+    eng = DualGeneratorEngine.from_torch_checkpoints(
+        *paths, img_size=SIZE, compute_dtype=torch.float32, device="cpu")
+    got = eng.run_patient(_volume(), 1.0, -1024.0, chunk=4)
+    assert _within_one(got, ref)
+    mem = _engine(*(generator_state_dict_from_jax(p) for p in params))
+    np.testing.assert_array_equal(
+        got, mem.run_patient(_volume(), 1.0, -1024.0, chunk=4))
+
+
+def test_generate_batch_with_resize_matches_jax():
+    """48^2 slices through a 32^2 model: resize in, both generators, resize
+    back, decode to stored floats (no rounding)."""
+    params = [_jax_params(2, blocks=1), _jax_params(3, blocks=1)]
+    stored = _volume(z=3, size=48).astype(np.float32)
+    jeng = JaxEngine(*params, img_size=SIZE, compute_dtype=jnp.float32,
+                     forward="module")
+    ref = jeng.generate_batch(stored, 1.0, -1024.0)
+    got = _engine(*(generator_state_dict_from_jax(p) for p in params)) \
+        .generate_batch(stored, 1.0, -1024.0)
+    for k in ("st_stored", "lung_stored", "raw_hu"):
+        assert got[k].shape == (3, 48, 48)
+        np.testing.assert_allclose(got[k], ref[k], rtol=1e-5, atol=2e-3,
+                                   err_msg=k)
+
+
+def test_engine_default_device_requires_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sd = init_generator_state_dict(0, 1, BASE, 1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DualGeneratorEngine(sd, sd)
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"quant": "trunk"}, "quant"), ({"forward": "packed"}, "packed"),
+    ({"mesh": object()}, "multi-device"), ({"masks": True}, "mask")])
+def test_engine_refuses_unported_modes(kw, match):
+    sd = init_generator_state_dict(0, 1, BASE, 1)
+    st = sd
+    if kw.pop("masks", False):
+        st = init_generator_state_dict(0, 3, BASE, 1)
+    with pytest.raises(NotImplementedError, match=match):
+        _engine(st, sd, **kw)
+
+
+def test_generate_cli_matches_engine(tmp_path):
+    """The port's generate CLI on a 2-patient synthetic dataset: every
+    slice written, tags set, pixels equal to a direct run_patient."""
+    write_dataset(str(tmp_path / "input"), n_patients=2, n_slices=4,
+                  size=SIZE)
+    sds = [init_generator_state_dict(s, 1, BASE, BLOCKS) for s in (5, 6)]
+    paths = []
+    for name, sd in zip(("st", "lung"), sds):
+        paths.append(str(tmp_path / f"{name}.pth"))
+        torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, paths[-1])
+    done = tgen.main([
+        "--input_dir_root", str(tmp_path / "input"),
+        "--output_dir_root", str(tmp_path / "output"),
+        "--dataset_names", "SynthSet", "--img_size", str(SIZE),
+        "--slice_batch", "2", "--soft_tissue_model", paths[0],
+        "--lung_model", paths[1], "--compute_dtype", "float32",
+        "--device", "cpu"])
+    assert done == 2
+    eng = _engine(*sds)
+    for pid in ("patient00", "patient01"):
+        src = tmp_path / "input" / "SynthSet" / pid / "POST VUE"
+        vol = np.stack([dcmread(str(f)).pixel_array
+                        for f in sorted(src.glob("*.dcm"))])
+        want = eng.run_patient(vol, 1.0, -1024.0, chunk=2).astype(vol.dtype)
+        out = tmp_path / "output" / "SynthSet" / pid
+        files = sorted(os.listdir(out))
+        assert files == [f"{i:04d}.dcm" for i in range(4)]
+        for i, f in enumerate(files):
+            ds = dcmread(str(out / f))
+            assert ds.SeriesDescription == "DuCoSyGAN sCECT v2"
+            np.testing.assert_array_equal(ds.pixel_array, want[i])
+
+
+def test_generate_cli_rewrites_compressed_series(tmp_path):
+    """An RLE-compressed input series is written back as readable Explicit
+    VR LE (the writer resets the transfer syntax before the swap)."""
+    d = tmp_path / "input" / "DS" / "p0" / "POST VUE"
+    d.mkdir(parents=True)
+    for i, hu in enumerate(_volume(z=2)):
+        ds = codec.new_ct_dataset(SIZE, SIZE, instance_number=i + 1)
+        ds.set_pixel_array(hu.astype(np.uint16))
+        codec.dcmwrite(str(d / f"{i:04d}.dcm"), ds,
+                       transfer_syntax=codec.RLE_LOSSLESS)
+    sd = init_generator_state_dict(7, 1, BASE, 1)
+    path = str(tmp_path / "g.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, path)
+    tgen.main(["--input_dir_root", str(tmp_path / "input"),
+               "--output_dir_root", str(tmp_path / "output"),
+               "--dataset_names", "DS", "--img_size", str(SIZE),
+               "--soft_tissue_model", path, "--lung_model", path,
+               "--compute_dtype", "float32", "--device", "cpu"])
+    for f in sorted((tmp_path / "output" / "DS" / "p0").glob("*.dcm")):
+        ds = dcmread(str(f))
+        assert ds.transfer_syntax_uid == codec.EXPLICIT_VR_LE
+        assert ds.pixel_array.shape == (SIZE, SIZE)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--write_working"], ["--quant", "trunk"], ["--trunk_int8"],
+    ["--num_devices", "2"], ["--synthesis_mode", "additive"],
+    ["--soft_squeeze"]])
+def test_generate_cli_refuses_unported_flags(flags):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tgen.main(["--dataset_names", "none", "--device", "cpu", *flags])
+
+
+def test_generate_cli_loads_npz_params(tmp_path):
+    from ducosy_tpu.train.checkpoint import save_params_npz
+
+    params = _jax_params(4, blocks=2)
+    path = str(tmp_path / "g.npz")
+    save_params_npz(path, params)
+    got = tgen._load_generator(path)
+    want = generator_state_dict_from_jax(params)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_package_imports_without_jax():
+    """Every module of ducosy_tpu_torch imports in a fresh interpreter
+    without pulling in JAX or flax (the card machine has neither)."""
+    import ducosy_tpu_torch
+
+    names = [m.name for m in pkgutil.walk_packages(
+        ducosy_tpu_torch.__path__, "ducosy_tpu_torch.")]
+    assert "ducosy_tpu_torch.ops.kernels.residual_chain" in names
+    code = ("import importlib, sys\n"
+            f"for n in {names!r}: importlib.import_module(n)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax')]\n"
+            "assert not bad, bad\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=root,
+                   timeout=120)
