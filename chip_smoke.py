@@ -20,7 +20,20 @@ drives the serving path the way a user does, at full model width:
      path to 1 stored unit on >= 99.9% of voxels; the bf16 kernel path's
      |dHU| to the fp32 plain path and both paths' slices/s are printed;
   5. the port's generate CLI on one synthetic 32-slice 512^2 DICOM patient
-     with .pth checkpoints, read back from disk.
+     with .pth checkpoints, read back from disk;
+  6. the training kernels against their plain versions at the training
+     shapes (N = 8): K3 (instance_norm_bwd) on x (8, 128, 128, 256), pad 1,
+     ReLU; K4 (block_tail) and K5 (block_tail_bwd) on h (8, 128, 128, 256)
+     with pad 1 / x_pad 1 and pad 0 / x_pad 1; fp32 and bf16, with max and
+     mean |diff| and CUDA-event times;
+  7. the port's training CLI on a synthetic 512^2 chest-phantom patient
+     tree with mask generation at SOFT_TISSUE (3 input channels): 9 blocks,
+     base 64, batch 8, bf16, trunk="tail", a few steps. The launch counters
+     must show exactly the K2, K3, K4 and K5 calls of those steps and of the
+     validation pass, and every loss must be finite. The same steps then run
+     with trunk="plain" from the same init and batches; both first-step
+     losses, their difference, s/step, the peak memory and the remat mode
+     are printed.
 
 Any failure exits non-zero before the result lines. On success the last
 three lines are the card, a JSON object with one record per kernel, and
@@ -61,6 +74,41 @@ TOL = {("k2", "float32"): (1e-4, 1e-4), ("k2", "bfloat16"): (1e-2, 1e-2),
        ("k1", "float32"): (1e-3, 1e-3), ("k1", "bfloat16"): (0.125, 0.02)}
 K1_BF16_MEAN_TOL = 0.01
 STORED_UNIT_SHARE = 0.999   # fp32 kernel vs plain: |d| <= 1 on this share
+
+TRAIN_N = 8                      # training batch
+TRAIN_SHAPE = (TRAIN_N, 128, 128, 256)   # trunk activation; R = C / 16
+TAIL_CASES = ((1, 1), (0, 1))    # (pad, x_pad): blocks 1-8, block 9
+# Training-kernel tolerances, set from the dtypes before any run:
+#  K3 fp32: fp32 statistics and sums on both sides, summation order only:
+#    |d| <= 1e-4 + 1e-4 |ref|. Where the pre-ReLU value |y| < 1e-5 the two
+#    statistics (one ulp apart) may put an element on either side of the
+#    ReLU mask; those elements are left out and counted.
+#  K3 bf16: both compute in fp32 from the same bf16 inputs and round dx
+#    once: one bf16 ulp, |d| <= 1e-2 + 1e-2 |ref|, the same ReLU exclusion.
+#  K4 fp32: fp32 statistics, exact fp32 7x7 conv in the kernel vs cuDNN
+#    fp32 (TF32 off): |d| <= 1e-4 + 1e-4 |ref|.
+#  K4 bf16: the same rounding points on both sides (y, t, the gate, the
+#    product, the sum), but fp32 statistics one ulp apart can round y to
+#    the neighbouring bf16 value, which can carry to the output: two ulps,
+#    |d| <= 0.0625 + 0.02 |ref|, and mean |d| <= 1e-3.
+#  K5 fp32: every output (dh, dx, dw1, dw2, dwsa) within 1e-4 of the
+#    reference's largest |value| and at relative L2 error <= 1e-4 (fp32
+#    sums over 16384 pixels in another order; the kernel's zero avg-pool
+#    path differs from the plain one's by ~1e-8).
+#  K5 bf16: the plain version rounds dt, dy and each product to bf16 as the
+#    reference does (about six roundings per element, 0.2% each) where the
+#    kernel stays fp32, and a y one ulp apart can move a bf16 tie of a max
+#    pool: relative L2 error <= 2e-2 for every output; dx (the folded
+#    cotangent, fp32 sums in the kernel's wrapper, bf16 sums in the plain
+#    version) |d| <= 1e-2 + 1e-2 |ref|.
+TRAIN_TOL = {("k3", "float32"): (1e-4, 1e-4), ("k3", "bfloat16"): (1e-2, 1e-2),
+             ("k4", "float32"): (1e-4, 1e-4),
+             ("k4", "bfloat16"): (0.0625, 0.02)}
+K4_BF16_MEAN_TOL = 1e-3
+K5_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+RELU_EDGE = 1e-5
+TRAIN_PATIENTS, TRAIN_SLICES, TRAIN_STEPS = 5, 8, 4   # 4 train + 1 val
+BLOCKS = 9
 
 
 def fail(msg: str) -> None:
@@ -190,9 +238,11 @@ def check_residual_chain(k1, dev, records):
         fail(f"kernel disagrees with its plain version: {failures}")
 
 
-def chest_phantom(z: int, size: int, seed: int) -> np.ndarray:
+def chest_phantom(z: int, size: int, seed: int,
+                  contrast: bool = False) -> np.ndarray:
     """Stored int16 slices (HU + 1024): air, body, two lungs with vessels,
-    a contrast-free aorta, spine; structure drifts with z; 12 HU noise."""
+    an aorta (contrast-free, or enhanced with ``contrast``), spine;
+    structure drifts with z; 12 HU noise."""
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[:size, :size].astype(np.float32) / size
     vol = np.empty((z, size, size), np.int16)
@@ -207,8 +257,10 @@ def chest_phantom(z: int, size: int, seed: int) -> np.ndarray:
             hu[lung] = -850.0
             for k in range(6):
                 vy, vx = 0.35 + 0.05 * k, cx + 0.04 * np.sin(k + 3 * f)
-                hu[(yy - vy) ** 2 + (xx - vx) ** 2 < 0.0001] = 30.0
-        hu[(yy - 0.45) ** 2 + (xx - 0.5) ** 2 < 0.003] = 45.0
+                hu[(yy - vy) ** 2 + (xx - vx) ** 2 < 0.0001] = \
+                    180.0 if contrast else 30.0
+        hu[(yy - 0.45) ** 2 + (xx - 0.5) ** 2 < 0.003] = \
+            300.0 if contrast else 45.0
         hu[(np.abs(xx - 0.5) < 0.05) & (yy > 0.76) & body] = 650.0
         hu += rng.normal(0.0, 12.0, hu.shape).astype(np.float32)
         vol[i] = np.clip(hu + 1024.0, 0, 4095).astype(np.int16)
@@ -331,6 +383,214 @@ def run_cli_phase(k1, k2, st, lung):
         f"{secs:.2f} s (incl. engine build), launches K1 {got[0]} K2 {got[1]}")
 
 
+def compare_stats(got, ref):
+    """(max |d|, mean |d|, relative L2 error) of two tensors in fp32."""
+    import torch
+
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        fail(f"shape/dtype {tuple(got.shape)} {got.dtype} vs "
+             f"{tuple(ref.shape)} {ref.dtype}")
+    g, r = got.float(), ref.float()
+    if not torch.isfinite(g).all():
+        fail("non-finite kernel output")
+    d = (g - r).abs()
+    return (float(d.max()), float(d.mean()),
+            float(torch.linalg.vector_norm(g - r)
+                  / torch.linalg.vector_norm(r).clamp_min(1e-30)))
+
+
+def check_training_kernels(k2, k4, dev, records):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    n, hw, _, c = TRAIN_SHAPE
+    r = c // 16
+    rand = lambda *s, std=1.0: torch.randn(s, generator=gen, device=dev) * std
+
+    def act():
+        return rand(*TRAIN_SHAPE) * (rand(c).abs() + 0.5) + rand(c) * 2.0
+
+    failures = []
+    # ---- K3: the backward of each block's first norm (ReLU, pad 1)
+    x, g = act(), rand(n, hw + 2, hw + 2, c)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:]
+        xd, gd = x.to(dtype), g.to(dtype)
+        got = k2.instance_norm_bwd(xd, gd, relu=True, pad=1)
+        ref = k2.instance_norm_bwd_plain(xd, gd, relu=True, pad=1)
+        torch.cuda.synchronize()
+        x32 = xd.float()
+        xc = x32 - x32.mean(dim=(1, 2), keepdim=True)
+        y = xc * torch.rsqrt(xc.square().mean(dim=(1, 2), keepdim=True) + 1e-5)
+        keep = y.abs() > RELU_EDGE
+        atol, rtol = TRAIN_TOL[("k3", dname)]
+        ok, emax, emean = compare(got[keep], ref[keep], atol, rtol)
+        ms = cuda_ms(lambda: k2.instance_norm_bwd(xd, gd, relu=True, pad=1), 10)
+        plain_ms = cuda_ms(lambda: k2.instance_norm_bwd_plain(
+            xd, gd, relu=True, pad=1), 10)
+        log(f"K3 {tuple(xd.shape)} pad=1 relu {dname}: max|d|={emax:.3e} "
+            f"mean|d|={emean:.3e} (atol {atol}, rtol {rtol}; "
+            f"{int((~keep).sum())} elements at the ReLU edge left out) "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+            f"{'ok' if ok else 'FAIL'}")
+        records[("k3", dname)] = dict(max_abs_err=emax, ms=ms,
+                                      plain_ms=plain_ms)
+        if not ok:
+            failures.append(f"K3 {dname}")
+    del x, g, xd, gd, got, ref, x32, xc, y, keep
+
+    # ---- K4 / K5: the block tail and its backward
+    h, xp = act(), rand(n, hw + 2, hw + 2, c)
+    w1, w2, wsa = rand(c, r, std=0.1), rand(r, c, std=0.1), \
+        rand(7, 7, 2, 1, std=0.1)
+    for pad, x_pad in TAIL_CASES:
+        g = rand(n, hw + 2 * pad, hw + 2 * pad, c)
+        x = xp if x_pad else xp[:, 1:-1, 1:-1].contiguous()
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype)[6:]
+            hd, xd, gd = h.to(dtype), x.to(dtype), g.to(dtype)
+            kw = dict(pad=pad, x_pad=x_pad)
+            got = k4.block_tail(hd, xd, w1, w2, wsa, **kw)
+            ref = k4.block_tail_plain(hd, xd, w1, w2, wsa, **kw)
+            torch.cuda.synchronize()
+            atol, rtol = TRAIN_TOL[("k4", dname)]
+            ok, emax, emean = compare(got, ref, atol, rtol)
+            if dtype == torch.bfloat16 and emean > K4_BF16_MEAN_TOL:
+                ok = False
+            ms = cuda_ms(lambda: k4.block_tail(hd, xd, w1, w2, wsa, **kw), 10)
+            plain_ms = cuda_ms(lambda: k4.block_tail_plain(
+                hd, xd, w1, w2, wsa, **kw), 10)
+            log(f"K4 pad={pad} x_pad={x_pad} {tuple(hd.shape)} {dname}: "
+                f"max|d|={emax:.3e} mean|d|={emean:.3e} (atol {atol}, rtol "
+                f"{rtol}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+                f"{'ok' if ok else 'FAIL'}")
+            records[("k4", pad, dname)] = dict(max_abs_err=emax, ms=ms,
+                                               plain_ms=plain_ms)
+            if not ok:
+                failures.append(f"K4 pad={pad} {dname}")
+
+            got = k4.block_tail_bwd(hd, gd, w1, w2, wsa, **kw)
+            ref = k4.block_tail_bwd_plain(hd, gd, w1, w2, wsa, **kw)
+            torch.cuda.synchronize()
+            tol, worst, parts = K5_TOL[dname], 0.0, []
+            for name, a, b in zip(("dh", "dx", "dw1", "dw2", "dwsa"), got,
+                                  ref):
+                emax, emean, rel = compare_stats(a, b)
+                scale = float(b.float().abs().max())
+                if name == "dx" and dtype == torch.bfloat16:
+                    good = compare(a, b, 1e-2, 1e-2)[0]
+                elif dtype == torch.float32:
+                    good = rel <= tol and emax <= tol * scale
+                else:
+                    good = rel <= tol
+                if name == "dh":
+                    worst = emax
+                parts.append(f"{name} max|d|={emax:.3e} mean|d|={emean:.3e} "
+                             f"relL2={rel:.2e}{'' if good else ' FAIL'}")
+                if not good:
+                    failures.append(f"K5 pad={pad} {dname} {name}")
+            ms = cuda_ms(lambda: k4.block_tail_bwd(hd, gd, w1, w2, wsa, **kw),
+                         5)
+            plain_ms = cuda_ms(lambda: k4.block_tail_bwd_plain(
+                hd, gd, w1, w2, wsa, **kw), 5)
+            log(f"K5 pad={pad} x_pad={x_pad} {dname}: " + "; ".join(parts)
+                + f" (tol {tol}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            records[("k5", pad, dname)] = dict(max_abs_err=worst, ms=ms,
+                                               plain_ms=plain_ms)
+    if failures:
+        fail(f"kernel disagrees with its plain version: {failures}")
+
+
+def write_training_tree(root: Path) -> None:
+    """TRAIN_PATIENTS synthetic patients of TRAIN_SLICES 512^2 slices: a
+    NCCT series and a CECT series with an enhanced aorta and vessels."""
+    from ducosy_tpu.dicom.codec import new_ct_dataset
+
+    for p in range(TRAIN_PATIENTS):
+        for series, contrast in (("POST VUE", False), ("POST STD", True)):
+            vol = chest_phantom(TRAIN_SLICES, SIZE, SEED + 20 + p, contrast)
+            d = root / "Smoke" / f"patient{p:02d}" / series
+            d.mkdir(parents=True)
+            for i, sl in enumerate(vol):
+                ds = new_ct_dataset(SIZE, SIZE, instance_number=i + 1,
+                                    series_description=series)
+                ds.set_pixel_array(sl.astype(np.uint16))
+                ds.save_as(str(d / f"{i:04d}.dcm"))
+
+
+def run_training_phase(k2, k4, records):
+    from ducosy_tpu_torch.cli import train
+
+    counters = (k2.instance_norm, k2.instance_norm_bwd, k4.block_tail,
+                k4.block_tail_bwd)
+    names = ("instance_norm", "instance_norm_bwd", "block_tail",
+             "block_tail_bwd")
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_training_tree(Path(tmp, "data"))
+        # the kernel trunk as a user runs it, the plain trunk from the same
+        # init and batches, and the kernel trunk under remat, which the
+        # plain trunk needs on this card (its step falls back to it)
+        for trunk, remat in (("tail", "auto"), ("plain", "auto"),
+                             ("tail", "on")):
+            for f in counters:
+                f.launches = 0
+            t0 = time.perf_counter()
+            out = train.main([
+                "--data_root", str(Path(tmp, "data")),
+                "--dataset_names", "Smoke",
+                "--training_dir", str(Path(tmp, f"run_{trunk}_{remat}")),
+                "--img_size", str(SIZE), "--batch_size", str(TRAIN_N),
+                "--num_residual_blocks", str(BLOCKS), "--epochs", "1",
+                "--max_steps_per_epoch", str(TRAIN_STEPS), "--resume", "",
+                "--num_workers", "8", "--trunk", trunk, "--remat", remat])
+            out = out["soft_tissue"]
+            secs = time.perf_counter() - t0
+            launches = dict(zip(names, (f.launches for f in counters)))
+            losses = {k: v for k, v in out.items() if k.startswith("loss")
+                      or k in ("contrast", "val_loss")}
+            if not all(np.isfinite(v) for v in losses.values()):
+                fail(f"training ({trunk}): non-finite losses {losses}")
+            steps = out["step_seconds"]
+            if len(steps) != TRAIN_STEPS:
+                fail(f"training ({trunk}): {len(steps)} steps run")
+            results[(trunk, remat)] = out
+            log(f"training {trunk} remat={remat}: {TRAIN_STEPS} steps + "
+                f"validation in {secs:.1f} s; step seconds "
+                f"{[round(t, 3) for t in steps]}; ended in remat "
+                f"{out['remat']} (fallback {out['oom_fallback']}); peak "
+                f"memory {out['peak_memory_bytes'] / 2**30:.2f} GiB; "
+                f"launches {launches}; losses {losses}")
+            if trunk == "tail":
+                # per generator forward: K2 and K4 once per block; K3, K5 in
+                # each backward; remat recomputes every forward of the G
+                # step; validation runs 2 x 6 forwards without gradients
+                fwd = 6 * BLOCKS * TRAIN_STEPS
+                rerun = 2 if out["remat"] == "on" else 1
+                val = 2 * 6 * BLOCKS
+                want = {"instance_norm": fwd * rerun + val,
+                        "instance_norm_bwd": fwd,
+                        "block_tail": fwd * rerun + val,
+                        "block_tail_bwd": fwd}
+                if out["oom_fallback"] or launches != want:
+                    fail(f"training launch counts {launches} != {want} "
+                         f"(remat fallback: {out['oom_fallback']})")
+                if remat == "auto":
+                    records["train_launches"] = launches
+            elif any(launches.values()):
+                fail(f"the plain trunk launched kernels: {launches}")
+    first = {k: v["first_metrics"]["loss_G"] for k, v in results.items()}
+    med = {k: statistics.median(v["step_seconds"][1:])
+           for k, v in results.items()}
+    tail, plain = first[("tail", "auto")], first[("plain", "auto")]
+    log(f"training first-step loss_G: tail {tail:.6f} plain {plain:.6f} "
+        f"diff {tail - plain:.3e} (same init and batch, bf16)")
+    log("training s/step (median of steps 2-" + str(TRAIN_STEPS) + ", batch "
+        f"{TRAIN_N} x {SIZE}^2, bf16, {BLOCKS} blocks, SOFT_TISSUE): "
+        + ", ".join(f"{t} remat={results[(t, r)]['remat']} {m:.4f}"
+                    for (t, r), m in med.items()))
+    records["s_per_step"] = med
+
 def main() -> None:
     import torch
 
@@ -352,14 +612,18 @@ def main() -> None:
         f"{sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
 
     from ducosy_tpu_torch.ops.kernels import _build
+    from ducosy_tpu_torch.ops.kernels import block_tail as k4
     from ducosy_tpu_torch.ops.kernels import instance_norm as k2
     from ducosy_tpu_torch.ops.kernels import residual_chain as k1
 
-    for name in ("instance_norm", "residual_chain"):
-        t0 = time.perf_counter()
+    sources = ("instance_norm", "residual_chain", "instance_norm_bwd",
+               "block_tail", "block_tail_bwd")
+    t0 = time.perf_counter()
+    _build.build_all(sources)          # one nvcc per source, all at once
+    log(f"built {len(sources)} sources in {time.perf_counter() - t0:.2f} s")
+    for name in sources:
         _build.load_library(name)
-        log(f"built {name}.cu in {time.perf_counter() - t0:.2f} s "
-            f"-> {_build.library_path(name).name}")
+        log(f"  {name}.cu -> {_build.library_path(name).name}")
         for line in _build.build_log(name).splitlines():
             if "registers" in line or ("spill" in line and
                                        "0 bytes spill stores" not in line):
@@ -370,20 +634,37 @@ def main() -> None:
     check_residual_chain(k1, dev, records)
     st, lung = run_engine_phase(k1, k2, dev, records)
     run_cli_phase(k1, k2, st, lung)
+    check_training_kernels(k2, k4, dev, records)
+    run_training_phase(k2, k4, records)
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("JAX was imported")
 
-    k1_rec = records[("k1", 3, 1, "bfloat16")]
-    k2_rec = records[("k2", "down2", "bfloat16")]
+    train = records["train_launches"]
     kernels = [
         dict(name="residual_chain", route="cuda",
              source="ducosy_tpu_torch/csrc/residual_chain.cu",
              replaces="ducosy_tpu/ops/pallas/conv_in.py:399",
-             launches=records["launches"]["residual_chain"], **k1_rec),
+             launches=records["launches"]["residual_chain"],
+             **records[("k1", 3, 1, "bfloat16")]),
         dict(name="instance_norm", route="cuda",
              source="ducosy_tpu_torch/csrc/instance_norm.cu",
              replaces="ducosy_tpu/ops/pallas/instance_norm.py:206",
-             launches=records["launches"]["instance_norm"], **k2_rec),
+             launches=records["launches"]["instance_norm"],
+             **records[("k2", "down2", "bfloat16")]),
+        dict(name="instance_norm_bwd", route="cuda",
+             source="ducosy_tpu_torch/csrc/instance_norm_bwd.cu",
+             replaces="ducosy_tpu/ops/pallas/instance_norm.py:297",
+             launches=train["instance_norm_bwd"],
+             **records[("k3", "bfloat16")]),
+        dict(name="block_tail", route="cuda",
+             source="ducosy_tpu_torch/csrc/block_tail.cu",
+             replaces="ducosy_tpu/ops/pallas/cbam_block.py:108",
+             launches=train["block_tail"], **records[("k4", 1, "bfloat16")]),
+        dict(name="block_tail_bwd", route="cuda",
+             source="ducosy_tpu_torch/csrc/block_tail_bwd.cu",
+             replaces="ducosy_tpu/ops/pallas/cbam_block.py:272",
+             launches=train["block_tail_bwd"],
+             **records[("k5", 1, "bfloat16")]),
     ]
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -1,4 +1,4 @@
-// Shared device code of the port's InstanceNorm-bearing kernels (K1, K2).
+// Shared device code of the port's InstanceNorm-bearing kernels (K1-K5).
 //
 // Whole-image reductions are split into per-tile partials and an apply
 // step: a tile of TILE_M pixels x TILE_N channels reports its per-channel
@@ -99,6 +99,88 @@ __device__ __forceinline__ void merge_tiles(const float* pmean,
 
 __device__ __forceinline__ float inv_std(float m2, int hw, float eps) {
   return 1.f / sqrtf(fmaxf(m2 / hw, 0.f) + eps);
+}
+
+constexpr int STATS_THREADS = 256;
+
+// Per-tile partials of x (n, h*w, c) in the io dtype: mean, M2 and (if
+// pmax) max of each channel over TILE_M pixels. Grid (c / TILE_N, tiles, n).
+template <typename T>
+__global__ void __launch_bounds__(STATS_THREADS)
+tile_stats_kernel(const T* __restrict__ x, float* __restrict__ pmean,
+                  float* __restrict__ pm2, float* __restrict__ pmax, int hw,
+                  int c) {
+  __shared__ __align__(16) float cs[TILE_M * CS_LD];
+  const int co0 = blockIdx.x * TILE_N, tile = blockIdx.y, ni = blockIdx.z;
+  const int m0 = tile * TILE_M, rows = min(TILE_M, hw - m0);
+  for (int i = threadIdx.x; i < TILE_M * TILE_N; i += STATS_THREADS) {
+    const int r = i / TILE_N, k = i % TILE_N;
+    cs[r * CS_LD + k] =
+        r < rows ? to_f32(x[((size_t)ni * hw + m0 + r) * c + co0 + k]) : 0.f;
+  }
+  __syncthreads();
+  tile_stats(cs, rows, pmean, pm2, pmax,
+             ((size_t)ni * gridDim.y + tile) * c + co0);
+}
+
+// Channel sums over a tile, for kernels that reduce NSUM per-pixel values
+// of each channel: a block of STATS_THREADS is 4 pixel groups x TILE_N
+// channels; each thread adds its pixels, then the groups are summed in
+// shared memory and written at out[s][(ni * tiles + tile) * c + channel].
+constexpr int SUM_GROUPS = STATS_THREADS / TILE_N;
+
+template <int NSUM>
+__device__ __forceinline__ void store_tile_sums(const float (&acc)[NSUM],
+                                                float* const (&out)[NSUM],
+                                                int c) {
+  __shared__ float red[NSUM][SUM_GROUPS][TILE_N];
+  const int k = threadIdx.x % TILE_N, grp = threadIdx.x / TILE_N;
+#pragma unroll
+  for (int s = 0; s < NSUM; ++s) red[s][grp][k] = acc[s];
+  __syncthreads();
+  if (grp == 0) {
+    const size_t o = ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * c +
+                     blockIdx.x * TILE_N + k;
+#pragma unroll
+    for (int s = 0; s < NSUM; ++s) {
+      float v = 0.f;
+      for (int g = 0; g < SUM_GROUPS; ++g) v += red[s][g][k];
+      out[s][o] = v;
+    }
+  }
+}
+
+// Sum of the `tiles` partials of (sample, channel) idx in p (n, tiles, c).
+__device__ __forceinline__ float sum_tiles(const float* p, int idx, int tiles,
+                                           int c) {
+  const int ni = idx / c, ci = idx % c;
+  float s = 0.f;
+  for (int t = 0; t < tiles; ++t) s += p[((size_t)ni * tiles + t) * c + ci];
+  return s;
+}
+
+// The reflect-pad adjoint as a gather: channel k of the cotangent g of a
+// tensor reflect-padded by `pad` (0 or 1), folded back onto interior pixel
+// (i, j). g points at one sample, (h + 2 pad, w + 2 pad, c). With pad 1
+// the pad row 0 mirrors row 1 and the pad row h + 1 mirrors row h - 2
+// (likewise columns), so rows and columns 1 and h - 2 gather two terms and
+// their crossings four. A gather writes each output once: no atomics.
+template <typename T>
+__device__ __forceinline__ float fold_reflect(const T* g, int i, int j, int k,
+                                              int h, int w, int c, int pad) {
+  if (!pad) return to_f32(g[((size_t)i * w + j) * c + k]);
+  int rows[3], cols[3], nr = 0, nc = 0;
+  rows[nr++] = i + 1;
+  cols[nc++] = j + 1;
+  if (i == 1) rows[nr++] = 0;
+  if (i == h - 2) rows[nr++] = h + 1;
+  if (j == 1) cols[nc++] = 0;
+  if (j == w - 2) cols[nc++] = w + 1;
+  float s = 0.f;
+  for (int a = 0; a < nr; ++a)
+    for (int b = 0; b < nc; ++b)
+      s += to_f32(g[((size_t)rows[a] * (w + 2) + cols[b]) * c + k]);
+  return s;
 }
 
 // (sample, channel) mean and 1/sqrt(var + eps) from the tile partials.

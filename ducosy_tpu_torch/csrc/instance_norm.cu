@@ -25,33 +25,13 @@
 namespace ducosy {
 namespace {
 
-constexpr int STATS_THREADS = 256;
-
-// Per-tile partials of x (n, h*w, c): grid (c / TILE_N, tiles, n).
-template <typename T>
-__global__ void __launch_bounds__(STATS_THREADS)
-tile_stats_kernel(const T* __restrict__ x, float* __restrict__ pmean,
-                  float* __restrict__ pm2, int hw, int c) {
-  __shared__ __align__(16) float cs[TILE_M * CS_LD];
-  const int co0 = blockIdx.x * TILE_N, tile = blockIdx.y, ni = blockIdx.z;
-  const int m0 = tile * TILE_M, rows = min(TILE_M, hw - m0);
-  for (int i = threadIdx.x; i < TILE_M * TILE_N; i += STATS_THREADS) {
-    const int r = i / TILE_N, k = i % TILE_N;
-    cs[r * CS_LD + k] =
-        r < rows ? to_f32(x[((size_t)ni * hw + m0 + r) * c + co0 + k]) : 0.f;
-  }
-  __syncthreads();
-  tile_stats(cs, rows, pmean, pm2, nullptr,
-             ((size_t)ni * gridDim.y + tile) * c + co0);
-}
-
 template <typename T>
 int instance_norm(const T* x, T* out, float* pmean, float* pm2, float* mean,
                   float* rstd, int n, int h, int w, int c, int relu, int pad,
                   float eps, cudaStream_t s) {
   const int hw = h * w, tiles = (hw + TILE_M - 1) / TILE_M;
   tile_stats_kernel<T><<<dim3(c / TILE_N, tiles, n), STATS_THREADS, 0, s>>>(
-      x, pmean, pm2, hw, c);
+      x, pmean, pm2, nullptr, hw, c);
   DUCOSY_CHECK_LAUNCH();
   finalize_stats<<<(n * c + 255) / 256, 256, 0, s>>>(pmean, pm2, mean, rstd,
                                                       n, tiles, c, hw, eps);

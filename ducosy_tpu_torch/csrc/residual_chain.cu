@@ -36,6 +36,7 @@
 //      a halo of 3, runs the 7x7 zero-padded conv (98 taps ordered
 //      avg | max, as at conv_in.py:428-430), sigmoid, adds the skip from
 //      the carry's interior and writes the reflect-padded output.
+//   Steps 5 and 6 live in cbam_tail.cuh, shared with K4 and K5.
 // What this simple design gives up: the conv accumulator and t round-trip
 // device memory between launches (the TPU kernel never leaves VMEM), the
 // conv main loop has no cp.async/TMA pipelining and uses mma.sync-class
@@ -43,7 +44,7 @@
 // wgmma + TMA with persistent tiles, and fusing apply into conv2's loads.
 #include <mma.h>
 
-#include "common.cuh"
+#include "cbam_tail.cuh"
 
 namespace ducosy {
 namespace {
@@ -238,149 +239,6 @@ conv3x3_f32(const float* __restrict__ xp, const float* __restrict__ wt,
                 hw, c);
 }
 
-// Channel gate, one block of c threads per sample: conv2 statistics,
-// the max-pooled normalized output, the C -> R -> C MLP and the sigmoid.
-// The avg-pooled path is zero: an instance-normalized channel has mean 0,
-// so relu(avg @ w1) @ w2 vanishes (the reference computes it from the
-// rounded y, where it is below 1e-6 of the max path).
-template <typename T>
-__global__ void channel_gate(const float* __restrict__ pmean,
-                             const float* __restrict__ pm2,
-                             const float* __restrict__ pmax,
-                             const float* __restrict__ w1,
-                             const float* __restrict__ w2,
-                             float* __restrict__ mean, float* __restrict__ rstd,
-                             float* __restrict__ gate, int tiles, int hw,
-                             int c, int r, float eps) {
-  extern __shared__ float sh[];
-  float* mx = sh;          // c
-  float* hid = sh + c;     // r
-  const int ni = blockIdx.x, ci = threadIdx.x;
-  float m, q, x;
-  merge_tiles(pmean, pm2, pmax, ni, ci, tiles, hw, c, &m, &q, &x);
-  const float rs = inv_std(q, hw, eps);
-  mean[ni * c + ci] = m;
-  rstd[ni * c + ci] = rs;
-  mx[ci] = round_io<T>((x - m) * rs);
-  __syncthreads();
-  if (ci < r) {
-    float s = 0.f;
-    for (int k = 0; k < c; ++k) s += mx[k] * w1[k * r + ci];
-    hid[ci] = fmaxf(s, 0.f);
-  }
-  __syncthreads();
-  float g = 0.f;
-  for (int j = 0; j < r; ++j) g += hid[j] * w2[j * c + ci];
-  gate[ni * c + ci] = round_io<T>(1.f / (1.f + expf(-g)));
-}
-
-constexpr int TAIL_TH = 16, TAIL_TW = 32;   // interior pixel tile
-constexpr int SA_K = 7, SA_R = 3;           // spatial-gate conv
-constexpr int HALO_H = TAIL_TH + 2 * SA_R, HALO_W = TAIL_TW + 2 * SA_R;
-constexpr int TAIL_THREADS = 256, TAIL_WARPS = TAIL_THREADS / 32;
-
-// The gated, normalized conv2 output t of channel k at one pixel.
-template <typename T>
-__device__ __forceinline__ float gated(const float* a, const float* mu,
-                                       const float* rs, const float* gc,
-                                       int k) {
-  const float y = round_io<T>((a[k] - mu[k]) * rs[k]);
-  return round_io<T>(y * gc[k]);
-}
-
-// Spatial gate + skip + reflect-padded write. Grid (ceil(w/32),
-// ceil(h/16), n); dynamic shared memory holds 3*c floats.
-template <typename T>
-__global__ void __launch_bounds__(TAIL_THREADS)
-spatial_tail(const float* __restrict__ acc, const float* __restrict__ mean,
-             const float* __restrict__ rstd, const float* __restrict__ gate,
-             const T* __restrict__ xp, const float* __restrict__ wsa,
-             T* __restrict__ out, int h, int w, int c, int pad) {
-  __shared__ float s_avg[HALO_H * HALO_W], s_max[HALO_H * HALO_W];
-  __shared__ float s_gs[TAIL_TH * TAIL_TW], s_w[2 * SA_K * SA_K];
-  extern __shared__ float s_chan[];
-  float* mu = s_chan;
-  float* rs = s_chan + c;
-  float* gc = s_chan + 2 * c;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int w0 = blockIdx.x * TAIL_TW, h0 = blockIdx.y * TAIL_TH;
-  const int ni = blockIdx.z;
-  for (int k = tid; k < c; k += TAIL_THREADS) {
-    mu[k] = mean[ni * c + k];
-    rs[k] = rstd[ni * c + k];
-    gc[k] = gate[ni * c + k];
-  }
-  for (int k = tid; k < 2 * SA_K * SA_K; k += TAIL_THREADS) s_w[k] = wsa[k];
-  __syncthreads();
-
-  // channel mean / max of t over the tile and its halo; zero outside the
-  // image (the 7x7 conv pads with zeros)
-  for (int p = warp; p < HALO_H * HALO_W; p += TAIL_WARPS) {
-    const int hh = h0 - SA_R + p / HALO_W, ww = w0 - SA_R + p % HALO_W;
-    float s = 0.f, m = 0.f;
-    if (hh >= 0 && hh < h && ww >= 0 && ww < w) {
-      const float* a = acc + (((size_t)ni * h + hh) * w + ww) * c;
-      m = -INFINITY;
-      for (int k = lane; k < c; k += 32) {
-        const float t = gated<T>(a, mu, rs, gc, k);
-        s += t;
-        m = fmaxf(m, t);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2) {
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-      }
-      s /= c;
-    }
-    if (lane == 0) {
-      s_avg[p] = s;
-      s_max[p] = m;
-    }
-  }
-  __syncthreads();
-
-  for (int p = tid; p < TAIL_TH * TAIL_TW; p += TAIL_THREADS) {
-    const int ph = p / TAIL_TW, pw = p % TAIL_TW;
-    float g = 0.f;
-    for (int di = 0; di < SA_K; ++di)
-      for (int dj = 0; dj < SA_K; ++dj) {
-        const int q = (ph + di) * HALO_W + pw + dj;
-        g += s_w[di * SA_K + dj] * s_avg[q] +
-             s_w[SA_K * SA_K + di * SA_K + dj] * s_max[q];
-      }
-    s_gs[p] = round_io<T>(1.f / (1.f + expf(-g)));
-  }
-  __syncthreads();
-
-  // out = x_interior + t * gate_s, written at (hh+pad, ww+pad) and at the
-  // reflected border positions it also fills when pad = 1
-  const int hp = h + 2 * pad, wpo = w + 2 * pad;
-  for (int p = warp; p < TAIL_TH * TAIL_TW; p += TAIL_WARPS) {
-    const int hh = h0 + p / TAIL_TW, ww = w0 + p % TAIL_TW;
-    if (hh >= h || ww >= w) continue;
-    int rows_o[3], cols_o[3], nr = 0, nc = 0;
-    rows_o[nr++] = hh + pad;
-    cols_o[nc++] = ww + pad;
-    if (pad) {
-      if (hh == 1) rows_o[nr++] = 0;
-      if (hh == h - 2) rows_o[nr++] = h + 1;
-      if (ww == 1) cols_o[nc++] = 0;
-      if (ww == w - 2) cols_o[nc++] = w + 1;
-    }
-    const float gs = s_gs[p];
-    const float* a = acc + (((size_t)ni * h + hh) * w + ww) * c;
-    const T* x = xp + (((size_t)ni * (h + 2) + hh + 1) * (w + 2) + ww + 1) * c;
-    for (int k = lane; k < c; k += 32) {
-      const float t = gated<T>(a, mu, rs, gc, k);
-      const T o = from_f32<T>(to_f32(x[k]) + round_io<T>(t * gs));
-      for (int i = 0; i < nr; ++i)
-        for (int j = 0; j < nc; ++j)
-          out[(((size_t)ni * hp + rows_o[i]) * wpo + cols_o[j]) * c + k] = o;
-    }
-  }
-}
-
 template <typename T>
 void launch_conv(const T* xp, const T* wt, float* acc, float* pmean,
                  float* pm2, float* pmax, int n, int h, int w, int c,
@@ -411,14 +269,9 @@ int residual_block(const T* xp, const T* wa, const T* wb, const float* w1,
   DUCOSY_CHECK_LAUNCH();
   launch_conv<T>(tp, wb, acc, pmean, pm2, pmax, n, h, w, c, tiles, s);
   DUCOSY_CHECK_LAUNCH();
-  channel_gate<T><<<n, c, (c + r) * sizeof(float), s>>>(
-      pmean, pm2, pmax, w1, w2, mean, rstd, gate, tiles, hw, c, r, eps);
-  DUCOSY_CHECK_LAUNCH();
-  const dim3 tgrid((w + TAIL_TW - 1) / TAIL_TW, (h + TAIL_TH - 1) / TAIL_TH, n);
-  spatial_tail<T><<<tgrid, TAIL_THREADS, 3 * c * sizeof(float), s>>>(
-      acc, mean, rstd, gate, xp, wsa, out, h, w, c, pad);
-  DUCOSY_CHECK_LAUNCH();
-  return 0;
+  return launch_tail<T, float>(acc, xp, w1, w2, wsa, out, pmean, pm2, pmax,
+                               mean, rstd, gate, n, h, w, c, r, tiles, pad, 1,
+                               eps, s);
 }
 
 }  // namespace

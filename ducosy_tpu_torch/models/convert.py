@@ -1,5 +1,6 @@
-"""Generator checkpoints: the reference ``.pth`` key layout, the JAX params
-tree, and a seeded numpy init (ducosy_tpu/models/torch_import.py:31-155).
+"""Checkpoints of the four networks: the reference ``.pth`` key layouts, the
+JAX params trees, and seeded numpy inits (ducosy_tpu/models/
+torch_import.py:31-177).
 
 The reference Generator is an ``nn.Sequential`` (modules/model.py:94-113);
 for R residual blocks its state dict holds
@@ -8,10 +9,12 @@ for R residual blocks its state dict holds
   model.{10+i}.cbam.channel_attention.fc.{0,2} and
   model.{10+i}.cbam.spatial_attention.conv,
   model.{11+R} up1, model.{15+R} up2, model.{19+R} head.
-The port's ``Generator`` uses this layout as its own ``state_dict``, so a
-released ``.pth`` loads with ``load_state_dict``. Conversion from the JAX
-tree only transposes: flax conv (kh, kw, I, O) -> torch (O, I, kh, kw),
-dense (I, O) -> 1x1 conv (O, I, 1, 1).
+The reference Discriminator is an ``nn.Sequential`` too (modules/model.py:
+118-131): convs at model.{0,2,5,8} and the head at model.12. The port's
+``Generator`` and ``Discriminator`` use these layouts as their own
+``state_dict``, so reference files load with ``load_state_dict``.
+Conversion from the JAX trees only transposes: flax conv (kh, kw, I, O) ->
+torch (O, I, kh, kw), dense (I, O) -> 1x1 conv (O, I, 1, 1).
 """
 from __future__ import annotations
 
@@ -117,11 +120,57 @@ def init_generator_state_dict(seed: int, in_ch: int = 1, base: int = 64,
     """Seeded random CBAM generator in numpy: every weight N(0, 0.02),
     every bias zero (ducosy_tpu/models/layers.py:45-48). Needs neither JAX
     nor a checkpoint file."""
+    return _normal_init(seed, generator_shapes(in_ch, base, blocks))
+
+
+DISC_IDX = {"conv1": 0, "conv2": 2, "conv3": 5, "conv4": 8, "head": 12}
+
+
+def discriminator_state_dict_from_jax(params: Dict[str, Any]
+                                      ) -> Dict[str, np.ndarray]:
+    """JAX Discriminator params -> the port's state dict (numpy values,
+    reference key layout, torch_import.py:158-177)."""
+    sd: Dict[str, np.ndarray] = {}
+    for name, idx in DISC_IDX.items():
+        sd[f"model.{idx}.weight"] = _conv_to_torch(params[name]["kernel"])
+        sd[f"model.{idx}.bias"] = np.asarray(params[name]["bias"])
+    return sd
+
+
+def cyclegan_state_dicts_from_jax(state) -> Dict[str, Dict[str, np.ndarray]]:
+    """The four networks of a JAX ``CycleGANState`` (any object with its
+    ``params_*`` attributes, numpy or array leaves) as the port's state
+    dicts, keyed g_a2b, g_b2a, d_a, d_b."""
+    return {"g_a2b": generator_state_dict_from_jax(state.params_g_a2b),
+            "g_b2a": generator_state_dict_from_jax(state.params_g_b2a),
+            "d_a": discriminator_state_dict_from_jax(state.params_d_a),
+            "d_b": discriminator_state_dict_from_jax(state.params_d_b)}
+
+
+def discriminator_shapes(in_ch: int = 1, base: int = 64) -> Dict[str, tuple]:
+    """State-dict key -> shape for a PatchGAN discriminator."""
+    chans = (in_ch, base, 2 * base, 4 * base, 8 * base)
+    shapes: Dict[str, tuple] = {}
+    for i, idx in enumerate(DISC_IDX.values()):
+        cin, cout = (chans[i], chans[i + 1]) if i < 4 else (chans[4], 1)
+        shapes[f"model.{idx}.weight"] = (cout, cin, 4, 4)
+        shapes[f"model.{idx}.bias"] = (cout,)
+    return shapes
+
+
+def _normal_init(seed: int, shapes: Dict[str, tuple]) -> Dict[str, np.ndarray]:
     rng = np.random.default_rng(seed)
     sd = {}
-    for key, shape in generator_shapes(in_ch, base, blocks).items():
+    for key, shape in shapes.items():
         if key.endswith(".bias"):
             sd[key] = np.zeros(shape, np.float32)
         else:
             sd[key] = rng.normal(0.0, INIT_STD, shape).astype(np.float32)
     return sd
+
+
+def init_discriminator_state_dict(seed: int, in_ch: int = 1,
+                                  base: int = 64) -> Dict[str, np.ndarray]:
+    """Seeded random discriminator in numpy: weights N(0, 0.02), biases
+    zero, as ``init_generator_state_dict``."""
+    return _normal_init(seed, discriminator_shapes(in_ch, base))

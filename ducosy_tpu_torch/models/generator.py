@@ -15,8 +15,19 @@ two TPU-kernel sites to the hand-written kernels:
                  "chain3" placement (models/fused.py:603-639,
                  infer/engine.py:200-206). Stem, up1, up2 and head stay
                  plain convs and norms, as the JAX package left them to XLA.
+  trunk="tail"   the training trunk, the JAX trunk="pallas" placement with
+                 encoder_fused off (models/fused.py:615-623, :688-698):
+                 down2's norm is plain with a standalone reflect pad; each
+                 block runs conv1 (with bias), the differentiable K2/K3 norm
+                 (ReLU, pad 1), conv2 (with bias) and the differentiable
+                 K4/K5 tail on the padded carry (x_pad 1, pad 1, pad 0 on
+                 the last block).
   trunk="plain"  no kernel wrapper anywhere: the reference module math
                  with every conv bias, in plain PyTorch.
+
+Parameters keep their dtype (fp32 in training) and the forward computes in
+``compute_dtype`` (bf16 on the card), as Flax ``dtype=bf16`` does with
+fp32 params; by default the compute dtype is the parameters' dtype.
 """
 from __future__ import annotations
 
@@ -32,11 +43,12 @@ from ducosy_tpu_torch.models.layers import (
     reflect_pad,
     upsample_nearest_2x,
 )
+from ducosy_tpu_torch.ops.kernels import block_tail as k4
 from ducosy_tpu_torch.ops.kernels import instance_norm as k2
 from ducosy_tpu_torch.ops.kernels import residual_chain as k1
 
 CHAIN_K = 3  # residual blocks per K1 call on the serving path
-TRUNKS = ("chain", "plain")
+TRUNKS = ("chain", "tail", "plain")
 
 
 class _ChannelAttention(nn.Module):
@@ -75,15 +87,17 @@ class ResidualBlock(nn.Module):
 
 class Generator(nn.Module):
     """NCCT -> CECT slice translator: NHWC (N, H, W, in_ch) in [-1, 1] ->
-    (N, H, W, 1) fp32 tanh output. Compute dtype = the parameters' dtype
-    (``.to(torch.bfloat16)`` for bf16 serving)."""
+    (N, H, W, 1) fp32 tanh output. ``compute_dtype`` None computes in the
+    parameters' dtype (``.to(torch.bfloat16)`` for bf16 serving)."""
 
     def __init__(self, input_channels: int = 1, num_residual_blocks: int = 9,
-                 base_channels: int = 64, trunk: str = "chain"):
+                 base_channels: int = 64, trunk: str = "chain",
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         if trunk not in TRUNKS:
             raise ValueError(f"trunk must be one of {TRUNKS}: {trunk!r}")
         self.trunk = trunk
+        self.compute_dtype = compute_dtype
         self.num_residual_blocks = r = num_residual_blocks
         b, c = base_channels, 4 * base_channels
         self.model = nn.Sequential(
@@ -101,7 +115,8 @@ class Generator(nn.Module):
             nn.ReflectionPad2d(3), nn.Conv2d(b, 1, 7), nn.Tanh())
 
     @classmethod
-    def from_state_dict(cls, sd: Dict[str, torch.Tensor], trunk: str = "chain"):
+    def from_state_dict(cls, sd: Dict[str, torch.Tensor], trunk: str = "chain",
+                        compute_dtype: torch.dtype | None = None):
         """Build a generator shaped like ``sd`` (reference key layout) and
         load it strictly. Depth and width come from the state dict itself;
         values may be tensors or numpy arrays."""
@@ -113,7 +128,8 @@ class Generator(nn.Module):
             raise NotImplementedError(
                 "residual blocks without CBAM are not ported (ROADMAP.md "
                 "Queue 1, item 2); the released checkpoints all use CBAM")
-        gen = cls(int(stem.shape[1]), r, int(stem.shape[0]), trunk)
+        gen = cls(int(stem.shape[1]), r, int(stem.shape[0]), trunk,
+                  compute_dtype)
         gen.load_state_dict(sd)
         return gen
 
@@ -134,18 +150,41 @@ class Generator(nn.Module):
                 stack(lambda b: b.block[1].bias),
                 stack(lambda b: b.block[5].bias))
 
+    def _trunk_tail(self, hp: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+        """The training trunk on the reflect-padded carry hp."""
+        r = self.num_residual_blocks
+        for i in range(r):
+            blk = self.model[10 + i]
+            c1, c2 = blk.block[1], blk.block[5]
+            fc = blk.cbam.channel_attention.fc
+            t = conv2d(hp, c1.weight.to(dt), c1.bias.to(dt))
+            t = k2.instance_norm_fused(t, relu=True, pad=1)
+            t = conv2d(t, c2.weight.to(dt), c2.bias.to(dt))
+            hp = k4.block_tail_fused(
+                t, hp, fc[0].weight[:, :, 0, 0].T, fc[2].weight[:, :, 0, 0].T,
+                blk.cbam.spatial_attention.conv.weight.permute(2, 3, 1, 0),
+                pad=0 if i == r - 1 else 1, x_pad=1)
+        return hp
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         m, r = self.model, self.num_residual_blocks
         chain = self.trunk == "chain"
-        h = x.to(m[1].weight.dtype)
-        h = conv2d(reflect_pad(h, 3), m[1].weight, m[1].bias)
+        if chain and torch.is_grad_enabled() and m[1].weight.requires_grad:
+            raise RuntimeError("trunk='chain' has no backward (K1 is a "
+                               "serving kernel): train with trunk='tail' or "
+                               "'plain'")
+        dt = self.compute_dtype or m[1].weight.dtype
+        conv = lambda h, mod, **kw: conv2d(h, mod.weight.to(dt),
+                                           mod.bias.to(dt), **kw)
+        h = x.to(dt)
+        h = conv(reflect_pad(h, 3), m[1])
         h = torch.relu(instance_norm(h))
-        h = conv2d(h, m[4].weight, m[4].bias, stride=2, padding=1)
+        h = conv(h, m[4], stride=2, padding=1)
         if chain:
             h = k2.instance_norm(h.contiguous(), relu=True, pad=0)
         else:
             h = torch.relu(instance_norm(h))
-        h = conv2d(h, m[7].weight, m[7].bias, stride=2, padding=1)
+        h = conv(h, m[7], stride=2, padding=1)
         if chain:
             # the down2 norm also writes the trunk's first reflect pad
             h = k2.instance_norm(h.contiguous(), relu=True, pad=1)
@@ -156,13 +195,16 @@ class Generator(nn.Module):
                                       pad=0 if hi == r else 1)
         else:
             h = reflect_pad(torch.relu(instance_norm(h)), 1)
-            was, wbs, w1s, w2s, wsas, b1s, b2s = self._trunk_weights(0, r)
-            h = k1.residual_chain_plain(h, was, wbs, w1s, w2s, wsas, pad=0,
-                                        b1s=b1s, b2s=b2s)
+            if self.trunk == "tail":
+                h = self._trunk_tail(h, dt)
+            else:
+                was, wbs, w1s, w2s, wsas, b1s, b2s = self._trunk_weights(0, r)
+                h = k1.residual_chain_plain(h, was, wbs, w1s, w2s, wsas,
+                                            pad=0, b1s=b1s, b2s=b2s)
         ui, u2, hd = 11 + r, 15 + r, 19 + r
-        h = conv2d(upsample_nearest_2x(h), m[ui].weight, m[ui].bias, padding=1)
+        h = conv(upsample_nearest_2x(h), m[ui], padding=1)
         h = torch.relu(instance_norm(h))
-        h = conv2d(upsample_nearest_2x(h), m[u2].weight, m[u2].bias, padding=1)
+        h = conv(upsample_nearest_2x(h), m[u2], padding=1)
         h = torch.relu(instance_norm(h))
-        h = conv2d(reflect_pad(h, 3), m[hd].weight, m[hd].bias)
+        h = conv(reflect_pad(h, 3), m[hd])
         return torch.tanh(h.to(torch.float32))

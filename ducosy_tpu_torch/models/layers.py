@@ -32,6 +32,32 @@ def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
+def reflect_pad_adjoint(g: torch.Tensor, pad: int) -> torch.Tensor:
+    """Adjoint of ``reflect_pad`` on NHWC: the border of g folds back onto
+    the mirrored interior rows and columns
+    (ducosy_tpu/ops/pallas/instance_norm.py:362-381). Not differentiable
+    itself (it is used inside backward passes)."""
+    if pad == 0:
+        return g
+
+    def fold(t, dim):
+        n = t.shape[dim]
+        core = t.narrow(dim, pad, n - 2 * pad).clone()
+        h = core.shape[dim]
+        core.narrow(dim, 1, pad).add_(t.narrow(dim, 0, pad).flip(dim))
+        core.narrow(dim, h - 1 - pad, pad).add_(
+            t.narrow(dim, n - pad, pad).flip(dim))
+        return core
+
+    return fold(fold(g, 1), 2)
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
+    """where(x >= 0, x, slope * x): the JAX package's form, whose gradient
+    at 0 is 1 (ducosy_tpu/models/layers.py:87-88)."""
+    return torch.where(x >= 0, x, negative_slope * x)
+
+
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     """nn.Upsample(scale_factor=2, mode='nearest') on NHWC."""
     n, h, w, c = x.shape

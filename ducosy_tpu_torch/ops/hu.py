@@ -41,3 +41,12 @@ def denormalize_to_hu(x, hu_min, hu_max):
 def hu_to_stored(hu, slope, intercept):
     """HU -> stored pixel value; the caller casts to the DICOM dtype."""
     return (hu - intercept) / slope
+
+
+def apply_windowing(x, hu_min, hu_max, window_center, window_width):
+    """[-1, 1] image -> display window [0, 1] for the validation grids
+    (ducosy_tpu/ops/hu.py:72-81): HU, clamped to WC +- WW/2, over WW."""
+    hu = denormalize_to_hu(x, hu_min, hu_max)
+    lo = window_center - window_width / 2.0
+    hi = window_center + window_width / 2.0
+    return (torch.clamp(hu, lo, hi) - lo) / window_width

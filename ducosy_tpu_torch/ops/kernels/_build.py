@@ -15,6 +15,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[2]
@@ -47,14 +49,14 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-@functools.cache
-def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` for sm_90a unless already built, and load
-    it. Cached per process; raises RuntimeError if nvcc fails."""
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` for sm_90a unless already built; returns
+    the library's path. Raises RuntimeError if nvcc fails."""
     lib = library_path(name)
     if not lib.exists():
         BUILD_DIR.mkdir(exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}"
+                            ".tmp")
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC_DIR / f"{name}.cu")]
         proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -65,7 +67,22 @@ def load_library(name: str) -> ctypes.CDLL:
                 f"nvcc failed ({proc.returncode}) building {name}.cu:\n"
                 f"{proc.stderr[-6000:]}")
         os.replace(tmp, lib)
-    dll = ctypes.CDLL(str(lib))
+    return lib
+
+
+def build_all(names) -> None:
+    """Build several sources at once, one nvcc process each; raises the
+    first failure after all have finished."""
+    with ThreadPoolExecutor(max(len(names), 1)) as pool:
+        for fut in [pool.submit(build, n) for n in names]:
+            fut.result()
+
+
+@functools.cache
+def load_library(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if needed and load it. Cached per process;
+    raises RuntimeError if nvcc fails."""
+    dll = ctypes.CDLL(str(build(name)))
     dll.ducosy_error_string.restype = ctypes.c_char_p
     dll.ducosy_error_string.argtypes = [ctypes.c_int]
     return dll

@@ -14,7 +14,8 @@ larger than a Hopper block's shared memory, so each block runs as six
 launches that split every whole-image reduction into per-tile partials and
 a later apply step (see the source note there). ``residual_chain_plain``
 is the TPU package's XLA composition (conv_in.py:501-536 with
-cbam_block.py:472) in plain PyTorch, with optional conv biases.
+cbam_block.py:472, ``block_tail_plain`` of block_tail.py) in plain
+PyTorch, with optional conv biases.
 
 Weights use the JAX layouts, as ``residual_chain_pallas`` takes them:
 was/wbs (k, 3, 3, C, C) HWIO; w1s (k, C, R); w2s (k, R, C);
@@ -34,36 +35,14 @@ from ducosy_tpu_torch.models.layers import (
     reflect_pad,
 )
 from ducosy_tpu_torch.ops.kernels import _build
+from ducosy_tpu_torch.ops.kernels.block_tail import (
+    SA_KERNEL,
+    block_tail_plain,
+    hwio_to_oihw,
+)
 
 TILE_M = 128   # pixels per conv output / statistics tile (csrc/common.cuh)
 TILE_N = 64    # output channels per conv tile; C must be a multiple
-SA_KERNEL = 7  # CBAM spatial-attention kernel size
-
-
-def _hwio_to_oihw(w: torch.Tensor) -> torch.Tensor:
-    return w.permute(3, 2, 0, 1)
-
-
-def block_tail_plain(h, x, w1, w2, wsa, *, pad: int, x_pad: int,
-                     eps: float = EPS_INSTANCE_NORM):
-    """x(interior) + CBAM(IN(h)), reflect-padded by ``pad``
-    (cbam_block.py:472 ``_xla_block_tail``). h: (N, H, W, C) conv output;
-    x: the carry, reflect-padded by ``x_pad``."""
-    if x_pad:
-        x = x[:, x_pad:-x_pad, x_pad:-x_pad, :]
-    y = instance_norm(h, eps)
-    avg = y.to(torch.float32).mean(dim=(1, 2))                   # (N, C)
-    mx = y.amax(dim=(1, 2)).to(torch.float32)                    # (N, C)
-    w1f, w2f = w1.to(torch.float32), w2.to(torch.float32)
-    gate_c = torch.sigmoid(torch.relu(avg @ w1f) @ w2f
-                           + torch.relu(mx @ w1f) @ w2f)
-    t = y * gate_c.to(y.dtype)[:, None, None, :]
-    sa_avg = t.to(torch.float32).mean(dim=-1, keepdim=True)
-    sa_max = t.amax(dim=-1, keepdim=True).to(torch.float32)
-    stat = torch.cat([sa_avg, sa_max], dim=-1)                   # (N,H,W,2)
-    gate_s = torch.sigmoid(conv2d(stat, _hwio_to_oihw(wsa.to(torch.float32)),
-                                  padding=SA_KERNEL // 2)).to(t.dtype)
-    return reflect_pad(x + t * gate_s, pad)
 
 
 def residual_chain_plain(xp, was, wbs, w1s, w2s, wsas, *, pad: int = 1,
@@ -76,9 +55,9 @@ def residual_chain_plain(xp, was, wbs, w1s, w2s, wsas, *, pad: int = 1,
     for j in range(k):
         b1 = None if b1s is None else b1s[j].to(dt)
         b2 = None if b2s is None else b2s[j].to(dt)
-        t = conv2d(xp, _hwio_to_oihw(was[j]).to(dt), b1)
+        t = conv2d(xp, hwio_to_oihw(was[j]).to(dt), b1)
         t = reflect_pad(torch.relu(instance_norm(t, eps)), 1)
-        y = conv2d(t, _hwio_to_oihw(wbs[j]).to(dt), b2)
+        y = conv2d(t, hwio_to_oihw(wbs[j]).to(dt), b2)
         xp = block_tail_plain(y, xp, w1s[j], w2s[j], wsas[j],
                               pad=pad if j == k - 1 else 1, x_pad=1, eps=eps)
     return xp

@@ -275,7 +275,10 @@ def test_package_imports_without_jax():
 
     names = [m.name for m in pkgutil.walk_packages(
         ducosy_tpu_torch.__path__, "ducosy_tpu_torch.")]
-    assert "ducosy_tpu_torch.ops.kernels.residual_chain" in names
+    for mod in ("ops.kernels.residual_chain", "ops.kernels.block_tail",
+                "models.discriminator", "losses.suite", "train.loop",
+                "data.dataset", "cli.train"):
+        assert f"ducosy_tpu_torch.{mod}" in names, mod
     code = ("import importlib, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
