@@ -26,6 +26,19 @@ drives the serving path the way a user does, at full model width:
      ReLU; K4 (block_tail) and K5 (block_tail_bwd) on h (8, 128, 128, 256)
      with pad 1 / x_pad 1 and pad 0 / x_pad 1; fp32 and bf16, with max and
      mean |diff| and CUDA-event times;
+  3q. quantized serving's kernels against their plain versions: K1q
+     (residual_chain quant=True) on the (16, 130, 130, 256) carry, k = 3
+     and 1, pad 1 and 0, bf16 and fp32, with the share of int8 t codes
+     that agree (k = 1); K2's int8 write (16, 128, 128, 256) pad 1 bf16
+     (code agreement) and its phase pooling (16, 128, 128, 512), 4 phases,
+     bf16 and fp32; P3 (tap_probe), int8 exact, TOP/s of int8 and bf16 at
+     (16384, 256) x (256, 256) with 9 and 36 taps;
+  4q. the engine at quant="trunk" and quant="full" (bf16, chain trunk, the
+     phase-4 generators and phantom): exact K1q and K2 launch counts,
+     slices/s beside the bf16 chain path, and both fidelity taps against
+     the bf16 engine (generate_batch stored outputs; run_patient); then
+     trunk="tail" at quant="trunk" with exact K2-int8 and K4 counts;
+  5q. the generate CLI with --quant trunk, read back from disk;
   7. the port's training CLI on a synthetic 512^2 chest-phantom patient
      tree with mask generation at SOFT_TISSUE (3 input channels): 9 blocks,
      base 64, batch 8, bf16, trunk="tail", a few steps. The launch counters
@@ -75,6 +88,36 @@ TOL = {("k2", "float32"): (1e-4, 1e-4), ("k2", "bfloat16"): (1e-2, 1e-2),
 K1_BF16_MEAN_TOL = 0.01
 STORED_UNIT_SHARE = 0.999   # fp32 kernel vs plain: |d| <= 1 on this share
 
+# Quantized serving, tolerances set before any run:
+#  K1q fp32, k = 1: where the kernel's and the plain version's fp32
+#    statistics differ in the last ulp, a t code can sit one step apart;
+#    that moves the conv2 input by S/255 at one pixel, ~1e-3 at the block
+#    output: |d| <= 1e-2 + 1e-2 |ref| and mean |d| <= 1e-4.
+#  K1q fp32, k = 3: the one-block bound failed in the first chip run (max
+#    1.9e-2, mean 4.4e-4): each block's code steps perturb the next block's
+#    conv1 input, which moves more codes there, so three blocks deep the
+#    fp32 chain diverges as the bf16 one does; it is held to the bf16
+#    tolerance.
+#  K1q bf16: as K1 bf16 (the plain version rounds the dequantized conv2
+#    output to bf16 before its norm; the kernel normalizes the int32
+#    accumulator), plus those code steps.
+#  t codes (k = 1, from the same carry; both quantize the fp32 normalized
+#    value of an fp32 accumulator of the same io-dtype products), and K2's
+#    int8 write (both quantize the bf16-rounded value): equal on >= 99.9%,
+#    never more than one step apart.
+#  K2 phases: the K2 tolerances above.
+#  P3: int8 exact; bf16 |d| <= 1e-4 max|ref| (fp32 sums in another order).
+#  Engine quant: the outputs must be finite int16 of the right shape, and
+#    the final tap's mean |dHU| against bf16 <= 25: a wrong grid, zero
+#    point or scale moves the output by hundreds of HU.
+K1Q_TOL = {"float32": (1e-2, 1e-2), "bfloat16": TOL[("k1", "bfloat16")]}
+K1Q_MEAN_TOL = {"float32": 1e-4, "bfloat16": K1_BF16_MEAN_TOL}
+CODE_SHARE = 0.999
+K2P_SHAPE = (N, 128, 128, 512)
+PROBE_SHAPE = (16384, 256, 256)
+PROBE_BF16_RTOL = 1e-4
+QUANT_MEAN_DHU_MAX = 25.0
+
 TRAIN_N = 8                      # training batch
 TRAIN_SHAPE = (TRAIN_N, 128, 128, 256)   # trunk activation; R = C / 16
 TAIL_CASES = ((1, 1), (0, 1))    # (pad, x_pad): blocks 1-8, block 9
@@ -109,6 +152,11 @@ K5_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 RELU_EDGE = 1e-5
 TRAIN_PATIENTS, TRAIN_SLICES, TRAIN_STEPS = 5, 8, 4   # 4 train + 1 val
 BLOCKS = 9
+
+
+def pick(rec: dict) -> dict:
+    """The kernels-line fields of a record."""
+    return {k: rec[k] for k in ("max_abs_err", "ms", "plain_ms")}
 
 
 def fail(msg: str) -> None:
@@ -334,7 +382,271 @@ def run_engine_phase(k1, k2, dev, records):
     return st, lung
 
 
-def run_cli_phase(k1, k2, st, lung):
+def code_agreement(got, ref):
+    """(share equal, max |d|) of two int8 tensors of one shape."""
+    import torch
+
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        fail(f"codes {tuple(got.shape)} {got.dtype} vs {tuple(ref.shape)} "
+             f"{ref.dtype}")
+    d = (got.to(torch.int32) - ref.to(torch.int32)).abs()
+    return float((d == 0).float().mean()), int(d.max())
+
+
+def check_k1q(k1, dev, records):
+    import torch
+    import torch.nn.functional as F
+
+    from ducosy_tpu_torch.ops.quant import quantize_weights_int8
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    n, hw, _, c = K1_SHAPE
+    r = c // 16
+    x = torch.randn((n, c, hw, hw), generator=gen, device=dev)
+    xp = F.pad(x, (1, 1, 1, 1), mode="reflect").permute(0, 2, 3, 1) \
+        .contiguous()
+    was = torch.randn((3, 3, 3, c, c), generator=gen, device=dev) * 0.02
+    wbs = torch.randn((3, 3, 3, c, c), generator=gen, device=dev) * 0.02
+    rest = (torch.randn((3, c, r), generator=gen, device=dev) * 0.1,
+            torch.randn((3, r, c), generator=gen, device=dev) * 0.1,
+            torch.randn((3, 7, 7, 2, 1), generator=gen, device=dev) * 0.1)
+    wq, ws = (torch.stack(t) for t in zip(*(quantize_weights_int8(w)
+                                            for w in wbs)))
+    failures = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:]
+        carry = xp.to(dtype)
+        for k in (3, 1):
+            args = (carry, was[:k], wq[:k], *(w[:k] for w in rest))
+            for pad in (1, 0):
+                kw = dict(pad=pad, quant=True, wb_scales=ws[:k])
+                tp = torch.empty(carry.shape, dtype=torch.int8, device=dev)
+                got = k1.residual_chain(*args, tp=tp, **kw)
+                ref = k1.residual_chain_plain(*args, **kw)
+                torch.cuda.synchronize()
+                tname = dname if k == 1 else "bfloat16"
+                atol, rtol = K1Q_TOL[tname]
+                ok, emax, emean = compare(got, ref, atol, rtol)
+                ok = ok and emean <= K1Q_MEAN_TOL[tname]
+                line = (f"K1q k={k} pad={pad} {tuple(carry.shape)} {dname}: "
+                        f"max|d|={emax:.3e} mean|d|={emean:.3e} (atol {atol},"
+                        f" rtol {rtol}, mean {K1Q_MEAN_TOL[tname]})")
+                rec = dict(max_abs_err=emax)
+                if k == 1:
+                    share, dmax = code_agreement(
+                        tp, k1.quant_intermediate_plain(carry, was[0]))
+                    line += f"; t codes equal {share:.6f}, max step {dmax}"
+                    ok = ok and share >= CODE_SHARE and dmax <= 1
+                    rec["code_share"] = share
+                if pad == 1 or k == 3:
+                    ms = cuda_ms(lambda: k1.residual_chain(*args, **kw), 3)
+                    plain_ms = cuda_ms(
+                        lambda: k1.residual_chain_plain(*args, **kw), 3)
+                    bf_ms = cuda_ms(lambda: k1.residual_chain(
+                        carry, was[:k], wbs[:k], *(w[:k] for w in rest),
+                        pad=pad), 3)
+                    line += (f" K1q {ms:.3f} ms, K1 (same dtype, no quant) "
+                             f"{bf_ms:.3f} ms, plain {plain_ms:.3f} ms")
+                    rec.update(ms=ms, plain_ms=plain_ms, k1_ms=bf_ms)
+                records[("k1q", k, pad, dname)] = rec
+                log(line + (" ok" if ok else " FAIL"))
+                if not ok:
+                    failures.append(f"K1q k={k} pad={pad} {dname}")
+    if failures:
+        fail(f"kernel disagrees with its plain version: {failures}")
+
+
+def check_k2p(k2, dev, records):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    failures = []
+    shape = K2_CASES[1][1]                   # down2 (N, 128, 128, 256)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen, device=dev)
+         * (torch.rand(c, generator=gen, device=dev) * 1.5 + 0.5)
+         + torch.randn(c, generator=gen, device=dev) * 2.0).to(torch.bfloat16)
+    got = k2.instance_norm_int8(x, pad=1)
+    ref = k2.instance_norm_int8_plain(x, pad=1)
+    torch.cuda.synchronize()
+    share, dmax = code_agreement(got, ref)
+    ok = share >= CODE_SHARE and dmax <= 1
+    ms = cuda_ms(lambda: k2.instance_norm_int8(x, pad=1), 20)
+    plain_ms = cuda_ms(lambda: k2.instance_norm_int8_plain(x, pad=1), 20)
+    log(f"K2 int8 {tuple(shape)} pad=1 bfloat16: codes equal {share:.6f}, "
+        f"max step {dmax} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+        f"{'ok' if ok else 'FAIL'}")
+    records["k2_int8"] = dict(max_abs_err=float(dmax), code_share=share,
+                              ms=ms, plain_ms=plain_ms)
+    if not ok:
+        failures.append("K2 int8")
+    c = K2P_SHAPE[-1]
+    base = (torch.randn(K2P_SHAPE, generator=gen, device=dev)
+            * (torch.rand(c, generator=gen, device=dev) * 1.5 + 0.5)
+            + torch.randn(c, generator=gen, device=dev) * 2.0)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:]
+        x = base.to(dtype)
+        kw = dict(relu=True, pad=0, phases=4)
+        got = k2.instance_norm(x, **kw)
+        ref = k2.instance_norm_plain(x, **kw)
+        torch.cuda.synchronize()
+        atol, rtol = TOL[("k2", dname)]
+        ok, emax, emean = compare(got, ref, atol, rtol)
+        ms = cuda_ms(lambda: k2.instance_norm(x, **kw), 20)
+        plain_ms = cuda_ms(lambda: k2.instance_norm_plain(x, **kw), 20)
+        log(f"K2 phases=4 {tuple(x.shape)} {dname}: max|d|={emax:.3e} "
+            f"mean|d|={emean:.3e} (atol {atol}, rtol {rtol}) kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms {'ok' if ok else 'FAIL'}")
+        records[("k2p", dname)] = dict(max_abs_err=emax, ms=ms,
+                                       plain_ms=plain_ms)
+        if not ok:
+            failures.append(f"K2 phases {dname}")
+    if failures:
+        fail(f"kernel disagrees with its plain version: {failures}")
+
+
+def check_tap_probe(tap, dev, records):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    m, k, n = PROBE_SHAPE
+    a8 = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                       dtype=torch.int8)
+    b8 = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                       dtype=torch.int8)
+    a16 = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    b16 = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
+    failures = []
+    for taps in (9, 36):
+        for name, a, b in (("int8", a8, b8), ("bf16", a16, b16)):
+            got = tap.tap_matmul(a, b, taps)
+            ref = tap.tap_matmul_plain(a, b, taps)
+            torch.cuda.synchronize()
+            err = float((got.double() - ref.double()).abs().max())
+            ok = bool(torch.equal(got, ref)) if name == "int8" else \
+                err <= PROBE_BF16_RTOL * float(ref.abs().max())
+            ms = cuda_ms(lambda: tap.tap_matmul(a, b, taps), 20)
+            plain_ms = cuda_ms(lambda: tap.tap_matmul_plain(a, b, taps), 20)
+            tops = 2.0 * m * k * n * taps / (ms * 1e-3) / 1e12
+            log(f"P3 {name} ({m},{k})x({k},{n}) x{taps}: max|d|={err:.3e} "
+                f"({'exact' if name == 'int8' else 'rel 1e-4 of max'}) "
+                f"kernel {ms:.4f} ms = {tops:.1f} TOP/s, plain {plain_ms:.4f}"
+                f" ms {'ok' if ok else 'FAIL'}")
+            records[("p3", name, taps)] = dict(max_abs_err=err, ms=ms,
+                                               plain_ms=plain_ms, tops=tops)
+            if not ok:
+                failures.append(f"P3 {name} x{taps}")
+    if failures:
+        fail(f"kernel disagrees with its plain version: {failures}")
+
+
+def dhu_stats(a, b):
+    d = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
+    return float(d.mean()), float(np.percentile(d, 99)), float(d.max())
+
+
+def run_quant_engine_phase(k1, k2, k4, dev, st, lung, records):
+    import torch
+
+    from ducosy_tpu_torch.infer.engine import DualGeneratorEngine
+
+    vol = chest_phantom(SLICES, SIZE, SEED)
+    n_chunks = -(-SLICES // N)
+
+    def engine(quant, trunk="chain"):
+        return DualGeneratorEngine(st, lung, img_size=SIZE,
+                                   compute_dtype=torch.bfloat16, device=dev,
+                                   trunk=trunk, quant=quant)
+
+    def run(eng):
+        t0 = time.perf_counter()
+        out = eng.run_patient(vol, 1.0, -1024.0, chunk=N)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    counters = {"residual_chain": k1.residual_chain,
+                "instance_norm": k2.instance_norm,
+                "instance_norm_int8": k2.instance_norm_int8,
+                "block_tail": k4.block_tail}
+
+    def counted(eng):
+        run(eng)                              # warm-up: cuDNN autotune etc.
+        for f in counters.values():
+            f.launches = 0
+        out, _ = run(eng)                     # the main path, counted
+        got = {k: f.launches for k, f in counters.items()}
+        if out.dtype != np.int16 or out.shape != vol.shape:
+            fail(f"quant engine output {out.dtype} {out.shape}")
+        return out, got
+
+    ref = engine(None)
+    ref_out, _ = run(ref)
+    engines = {"bf16": ref}
+    for quant in ("trunk", "full"):
+        eng = engines[quant] = engine(quant)
+        out, got = counted(eng)
+        want = {"residual_chain": 2 * 3 * n_chunks,
+                "instance_norm": 2 * (2 if quant == "trunk" else 1) * n_chunks,
+                "instance_norm_int8": 0, "block_tail": 0}
+        log(f"engine quant={quant} bf16 chain: launches {got} (expected "
+            f"{want})")
+        if got != want:
+            fail(f"quant={quant} launch counts {got} != {want}")
+        records[("launches", quant)] = got
+        final = dhu_stats(out, run(ref)[0])
+        sub = vol[:N]
+        raw_ref = ref.generate_batch(sub, 1.0, -1024.0)
+        raw_q = eng.generate_batch(sub, 1.0, -1024.0)
+        raw = dhu_stats(
+            np.concatenate([raw_q[k].ravel() for k in ("st_stored",
+                                                        "lung_stored")]),
+            np.concatenate([raw_ref[k].ravel() for k in ("st_stored",
+                                                          "lung_stored")]))
+        if not all(np.isfinite(raw_q[k]).all() for k in raw_q):
+            fail(f"quant={quant}: non-finite generate_batch output")
+        log(f"engine quant={quant} vs bf16 engine: raw tap (generate_batch "
+            f"st/lung stored, {N} slices) |dHU| mean {raw[0]:.4f} p99 "
+            f"{raw[1]:.4f} max {raw[2]:.1f}; final tap (run_patient) |dHU| "
+            f"mean {final[0]:.4f} p99 {final[1]:.4f} max {final[2]:.1f}")
+        records[("fidelity", quant)] = dict(raw=raw, final=final)
+        if final[0] > QUANT_MEAN_DHU_MAX:
+            fail(f"quant={quant}: final-tap mean |dHU| {final[0]} > "
+                 f"{QUANT_MEAN_DHU_MAX}")
+    rounds = {k: [] for k in engines}
+    for _ in range(3):                        # alternate the three modes
+        for name, eng in engines.items():
+            rounds[name].append(SLICES / run(eng)[1])
+    for name, rates in rounds.items():
+        log(f"engine {name} chain: slices/s median "
+            f"{statistics.median(rates):.2f} rounds "
+            f"{[round(v, 2) for v in rates]} ({SLICES} x {SIZE}^2, chunk {N},"
+            f" bf16 compute, incl. upload, postprocess, download)")
+    records["quant_slices_per_s"] = {k: statistics.median(v)
+                                     for k, v in rounds.items()}
+    del engines, ref
+
+    tail = engine("trunk", trunk="tail")
+    out, got = counted(tail)
+    want = {"residual_chain": 0, "instance_norm": 0,
+            "instance_norm_int8": 2 * BLOCKS * n_chunks,
+            "block_tail": 2 * BLOCKS * n_chunks}
+    final = dhu_stats(out, ref_out)
+    log(f"engine quant=trunk tail trunk: launches {got} (expected {want}); "
+        f"final tap vs the bf16 chain engine |dHU| mean {final[0]:.4f} p99 "
+        f"{final[1]:.4f} max {final[2]:.1f}")
+    if got != want:
+        fail(f"tail + quant launch counts {got} != {want}")
+    if final[0] > QUANT_MEAN_DHU_MAX:
+        fail(f"tail + quant: final-tap mean |dHU| {final[0]} > "
+             f"{QUANT_MEAN_DHU_MAX}")
+    del tail
+    # the int8 convs' im2col blocks go back before the training phase
+    torch.cuda.empty_cache()
+    records[("launches", "tail")] = got
+
+
+def run_cli_phase(k1, k2, st, lung, flags=()):
     import torch
 
     from ducosy_tpu.dicom import dcmread
@@ -363,7 +675,7 @@ def run_cli_phase(k1, k2, st, lung):
             "--output_dir_root", str(Path(tmp, "output")),
             "--dataset_names", "Smoke", "--img_size", str(SIZE),
             "--slice_batch", str(N), "--soft_tissue_model", paths["st"],
-            "--lung_model", paths["lung"]])
+            "--lung_model", paths["lung"], *flags])
         secs = time.perf_counter() - t0
         n_chunks = -(-SLICES // N)
         got = (k1.residual_chain.launches, k2.instance_norm.launches)
@@ -379,8 +691,9 @@ def run_cli_phase(k1, k2, st, lung):
                     ds.SeriesDescription != "DuCoSyGAN sCECT v2":
                 fail(f"CLI output {f.name}: {ds.pixel_array.shape} "
                      f"{ds.SeriesDescription!r}")
-    log(f"CLI: 1 patient, {SLICES} slices written and read back in "
-        f"{secs:.2f} s (incl. engine build), launches K1 {got[0]} K2 {got[1]}")
+    log(f"CLI {' '.join(flags) or '(bf16)'}: 1 patient, {SLICES} slices "
+        f"written and read back in {secs:.2f} s (incl. engine build), "
+        f"launches K1 {got[0]} K2 {got[1]}")
 
 
 def compare_stats(got, ref):
@@ -615,9 +928,10 @@ def main() -> None:
     from ducosy_tpu_torch.ops.kernels import block_tail as k4
     from ducosy_tpu_torch.ops.kernels import instance_norm as k2
     from ducosy_tpu_torch.ops.kernels import residual_chain as k1
+    from ducosy_tpu_torch.ops.kernels import tap_probe
 
     sources = ("instance_norm", "residual_chain", "instance_norm_bwd",
-               "block_tail", "block_tail_bwd")
+               "block_tail", "block_tail_bwd", "tap_probe")
     t0 = time.perf_counter()
     _build.build_all(sources)          # one nvcc per source, all at once
     log(f"built {len(sources)} sources in {time.perf_counter() - t0:.2f} s")
@@ -632,8 +946,13 @@ def main() -> None:
     records: dict = {}
     check_instance_norm(k2, dev, records)
     check_residual_chain(k1, dev, records)
+    check_k1q(k1, dev, records)
+    check_k2p(k2, dev, records)
+    check_tap_probe(tap_probe, dev, records)
     st, lung = run_engine_phase(k1, k2, dev, records)
+    run_quant_engine_phase(k1, k2, k4, dev, st, lung, records)
     run_cli_phase(k1, k2, st, lung)
+    run_cli_phase(k1, k2, st, lung, flags=("--quant", "trunk"))
     check_training_kernels(k2, k4, dev, records)
     run_training_phase(k2, k4, records)
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
@@ -665,6 +984,27 @@ def main() -> None:
              replaces="ducosy_tpu/ops/pallas/cbam_block.py:272",
              launches=train["block_tail_bwd"],
              **records[("k5", 1, "bfloat16")]),
+    ]
+    quant = records[("launches", "trunk")]
+    kernels += [
+        dict(name="residual_chain (K1q, quant=True)", route="cuda",
+             source="ducosy_tpu_torch/csrc/residual_chain.cu",
+             replaces="ducosy_tpu/ops/pallas/conv_in.py:399",
+             launches=quant["residual_chain"],
+             **pick(records[("k1q", 3, 1, "bfloat16")])),
+        dict(name="instance_norm (K2 int8 write)", route="cuda",
+             source="ducosy_tpu_torch/csrc/instance_norm.cu",
+             replaces="ducosy_tpu/ops/pallas/instance_norm.py:206",
+             launches=records[("launches", "tail")]["instance_norm_int8"],
+             **pick(records["k2_int8"])),
+        dict(name="instance_norm (K2 phases=4)", route="cuda",
+             source="ducosy_tpu_torch/csrc/instance_norm.cu",
+             replaces="ducosy_tpu/ops/pallas/instance_norm.py:206",
+             launches=0, **pick(records[("k2p", "bfloat16")])),
+        dict(name="tap_probe (P3, int8, 9 taps)", route="cuda",
+             source="ducosy_tpu_torch/csrc/tap_probe.cu",
+             replaces="scripts/probe_int8_mosaic.py:38",
+             launches=0, **pick(records[("p3", "int8", 9)])),
     ]
     log(json.dumps({"kernels": kernels}))
     log(card)

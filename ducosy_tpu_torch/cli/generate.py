@@ -9,8 +9,9 @@ raises if no card is visible). For every patient of every dataset the NCCT
 series runs through ``DualGeneratorEngine.run_patient`` and the final
 sCECT series is written. Patient N+1's DICOM decode runs in an io thread
 while patient N computes on the card, and patient N's download and write
-follow N+1's launch. ``--write_working``, ``--synthesis_mode additive``,
-``--quant``, ``--trunk_int8``, ``--num_devices`` > 1 and ``--soft_squeeze``
+follow N+1's launch. ``--quant trunk|full`` (or ``--trunk_int8``, the same
+as ``--quant trunk``) serves the quantized modes. ``--write_working``,
+``--synthesis_mode additive``, ``--num_devices`` > 1 and ``--soft_squeeze``
 are not ported yet and raise.
 """
 from __future__ import annotations
@@ -52,10 +53,15 @@ def parse_args(argv=None):
     p.add_argument("--num_devices", type=int, default=None,
                    help="multi-card serving (not ported yet)")
     p.add_argument("--trunk_int8", action="store_true",
-                   help="int8 trunk convs (not ported yet)")
+                   help="quantized serving: the trunk's conv2s int8 (same "
+                        "as --quant trunk)")
     p.add_argument("--quant", type=str, default=None,
                    choices=["trunk", "full"],
-                   help="quantized serving (not ported yet)")
+                   help="quantized serving mode: 'trunk' = each residual "
+                        "block's conv2 int8; 'full' = also the stem, down, "
+                        "up2 and head convs at static scales on the int8 "
+                        "grids (larger deviation; validate on your "
+                        "checkpoints)")
     p.add_argument("--soft_squeeze", action="store_true",
                    help="training-time input squeeze for mask-conditioned "
                         "framework checkpoints (not ported yet)")
@@ -69,8 +75,6 @@ def _refuse_unported(args) -> None:
     unported = {
         "--write_working": args.write_working,
         "--synthesis_mode additive": args.synthesis_mode != "overwrite",
-        "--quant": args.quant is not None,
-        "--trunk_int8": args.trunk_int8,
         "--num_devices": (args.num_devices or 1) > 1,
         "--soft_squeeze": args.soft_squeeze,
     }
@@ -108,7 +112,8 @@ def load_engine(args):
     return DualGeneratorEngine(_load_generator(args.soft_tissue_model),
                                _load_generator(args.lung_model),
                                img_size=args.img_size, compute_dtype=dtype,
-                               device=args.device)
+                               device=args.device, quant=args.quant,
+                               trunk_int8=args.trunk_int8)
 
 
 def _read_series(folder):

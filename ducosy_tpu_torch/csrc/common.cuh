@@ -1,4 +1,5 @@
-// Shared device code of the port's InstanceNorm-bearing kernels (K1-K5).
+// Shared device code of the port's InstanceNorm-bearing kernels (K1-K5)
+// and the int8 tap probe (P3).
 //
 // Whole-image reductions are split into per-tile partials and an apply
 // step: a tile of TILE_M pixels x TILE_N channels reports its per-channel
@@ -221,6 +222,91 @@ __global__ void norm_apply(const TIn* __restrict__ x,
 }
 
 constexpr int APPLY_THREADS = 128;
+
+// One mma.sync.m16n8k32 s8 x s8 -> s32 step: d += a * b, exact. a is the
+// 16x32 row-major fragment (4 registers of 4 bytes), b the 32x8
+// column-major fragment (2 registers), d the 16x8 accumulator; lane l holds
+// rows l/4 and l/4 + 8, at k offsets 4 (l%4) and 16 + 4 (l%4) of a and b,
+// and columns 2 (l%4), 2 (l%4) + 1 of d.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The int8 operand tiles of K1q's conv2 and the P3 probe: BK8 input
+// channels (bytes) per K step, rows LD8 bytes apart (80 B, so the 8 x 4
+// lane pattern of the 32-bit fragment loads hits distinct banks).
+constexpr int BK8 = 64;
+constexpr int LD8 = BK8 + 16;
+
+// One BK8-deep K step of a TILE_M x TILE_N block tile on mma.sync s8. as
+// holds the tile's TILE_M A rows (pixels), bs its TILE_N B rows (output
+// channels: B transposed), each BK8 input channels at stride LD8. The warp
+// at (wm, wn) of the 4 x 2 warp grid adds its 32 x 32 tile, 2 x 4 m16n8
+// fragments, to d.
+__device__ __forceinline__ void warp_mma_s8_step(const int8_t* as,
+                                                 const int8_t* bs, int wm,
+                                                 int wn, int lane,
+                                                 int (&d)[2][4][4]) {
+  const int g = lane / 4, tg = lane % 4;
+#pragma unroll
+  for (int kk = 0; kk < BK8; kk += 32) {
+    uint32_t fa[2][4], fb[4][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int8_t* p = as + (wm * 32 + i * 16 + g) * LD8 + kk + tg * 4;
+      fa[i][0] = *reinterpret_cast<const uint32_t*>(p);
+      fa[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD8);
+      fa[i][2] = *reinterpret_cast<const uint32_t*>(p + 16);
+      fa[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD8 + 16);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int8_t* p = bs + (wn * 32 + j * 8 + g) * LD8 + kk + tg * 4;
+      fb[j][0] = *reinterpret_cast<const uint32_t*>(p);
+      fb[j][1] = *reinterpret_cast<const uint32_t*>(p + 16);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_s8(d[i][j], fa[i], fb[j][0], fb[j][1]);
+  }
+}
+
+// The shifted int8 grid of quantized serving (ducosy_tpu/ops/pallas/
+// instance_norm.py:27-55, :186-199): q = trunc(min(y * k + 0.5, 255)) - 128
+// for y >= 0, k = 255 / S, in fp32. The product and the sum are rounded
+// separately (no FMA), as the reference and the plain version compute them.
+__device__ __forceinline__ int8_t quantize_shifted(float y, float k) {
+  const float q = fminf(__fadd_rn(__fmul_rn(y, k), 0.5f), 255.f);
+  return static_cast<int8_t>(static_cast<int>(q) - 128);
+}
+
+// norm_apply with ReLU and a shifted-grid int8 write at k = 255 / S. The
+// normalized value is rounded to TRound before the quantize: the io dtype
+// for K2's int8 write (instance_norm.py:172-199), float (no rounding) for
+// K1q's intermediate (conv_in.py:380-386).
+template <typename TIn, typename TRound>
+__global__ void norm_apply_int8(const TIn* __restrict__ x,
+                                const float* __restrict__ mean,
+                                const float* __restrict__ rstd,
+                                int8_t* __restrict__ out, int h, int w, int c,
+                                int pad, float k) {
+  const int wo = blockIdx.x, ho = blockIdx.y, ni = blockIdx.z;
+  const int hi = reflect(ho - pad, h), wi = reflect(wo - pad, w);
+  const TIn* src = x + (((size_t)ni * h + hi) * w + wi) * c;
+  int8_t* dst = out + (((size_t)ni * (h + 2 * pad) + ho) * (w + 2 * pad) + wo) * c;
+  const float* mu = mean + (size_t)ni * c;
+  const float* rs = rstd + (size_t)ni * c;
+  for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
+    const float y = fmaxf((to_f32(src[ch]) - mu[ch]) * rs[ch], 0.f);
+    dst[ch] = quantize_shifted(round_io<TRound>(y), k);
+  }
+}
 
 }  // namespace ducosy
 

@@ -3,8 +3,8 @@
 // these back to back; k = 3 is the serving path's chain3, k = 1 is K6.
 //
 // Replaces: residual_chain_pallas (ducosy_tpu/ops/pallas/conv_in.py:399,
-// pallas_call at :433) with quant=False, and residual_block_pallas
-// (conv_in.py:308). Each block computes
+// pallas_call at :433) with quant=False and quant=True (K1q), and
+// residual_block_pallas (conv_in.py:308). Each block computes
 //   t   = ReflectPad1(ReLU(IN(conv3x3_valid(xp, wa))))
 //   y   = IN(conv3x3_valid(t, wb))
 //   y  *= sigmoid(MLP(avgpool(y)) + MLP(maxpool(y)))          channel gate
@@ -12,12 +12,21 @@
 //   out = ReflectPad_pad(xp[1:-1, 1:-1] + y)
 // with fp32 accumulators and statistics, and the io dtype (bf16 or fp32)
 // at the same rounding points as the reference (conv_in.py:162-219).
+// K1q (quant=True, conv_in.py:380-386) writes t as shifted-grid int8,
+// trunc(min(y * 255/S + 0.5, 255)) - 128 of the fp32 normalized value y,
+// and runs conv2 int8 x int8 -> exact int32 with per-output-channel int8
+// weights quantized once by the caller. The int32 accumulator goes to fp32
+// and straight into the tail's IN, which absorbs the weight scale and the
+// grid's 128 * sum(wq) offset, as the TPU kernel does (conv_in.py:171-176).
+// conv1, the carry and the output keep the io dtype.
 //
 // What bounds it: each 3x3 conv at the trunk shape (128x128 pixels,
 // 256 -> 256 channels) is 2*128*128*256*256*9 = 19.3 GFLOP per sample,
 // against ~17 MB of bf16 activations: compute-bound, so the convs run on
 // the tensor cores (WMMA bf16 m16n16k16 with fp32 accumulate; the fp32
-// parity mode uses exact FMA on the CUDA cores).
+// parity mode uses exact FMA on the CUDA cores; K1q's conv2 uses
+// mma.sync m16n8k32 s8 x s8 -> s32, twice the bf16 rate on paper, and
+// reads half the bytes of t).
 //
 // Design: the TPU kernel keeps one sample's whole 130x130x256 carry in
 // VMEM (8.6 MB); a Hopper block has at most 227 KB of shared memory. So a
@@ -26,8 +35,9 @@
 //   1. conv1: implicit-GEMM tile of 128 pixels x 64 output channels; the
 //      epilogue writes the fp32 accumulator and per-tile (mean, M2);
 //   2. finalize: Chan-merge the tiles -> per-(n, c) mean, 1/std;
-//   3. apply: IN + ReLU + reflect-pad 1 -> t (io dtype);
-//   4. conv2 on t, epilogue also emits the per-tile channel max;
+//   3. apply: IN + ReLU + reflect-pad 1 -> t (io dtype; int8 for K1q);
+//   4. conv2 on t, epilogue also emits the per-tile channel max (K1q:
+//      the int32 accumulator converted to fp32 first);
 //   5. channel gate, one block per sample: finalize, max of the
 //      normalized output = (max acc - mean) * rstd exactly (rstd > 0,
 //      rounding is monotone), the C -> C/16 -> C MLP, sigmoid;
@@ -239,6 +249,78 @@ conv3x3_f32(const float* __restrict__ xp, const float* __restrict__ wt,
                 hw, c);
 }
 
+// K1q's conv2: 3x3 VALID conv, int8 x int8 -> exact int32 on the tensor
+// cores, fp32 out. xp (n, h+2, w+2, c) shifted-grid int8; wt (9, c, c) as
+// (tap, cout, cin): each output channel's input channels contiguous, the
+// column-major B operand of mma.sync. Same tiling as conv3x3_bf16: grid
+// (c / TILE_N, tiles, n), 8 warps as 4 (pixels) x 2 (channels), each warp
+// 32 x 32 as 2 x 4 m16n8 tiles; K steps of 64 channels, one 16-byte load
+// per thread and operand row segment.
+__global__ void __launch_bounds__(CONV_THREADS)
+conv3x3_int8(const int8_t* __restrict__ xp, const int8_t* __restrict__ wt,
+             float* __restrict__ acc, float* __restrict__ pmean,
+             float* __restrict__ pm2, float* __restrict__ pmax, int h, int w,
+             int c) {
+  __shared__ __align__(128) unsigned char smem[TILE_SMEM];
+  int8_t* as = reinterpret_cast<int8_t*>(smem);       // TILE_M x LD8
+  int8_t* bs = as + TILE_M * LD8;                      // TILE_N x LD8
+  float* cs = reinterpret_cast<float*>(smem);          // aliases as/bs after
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp % 4, wn = warp / 4;
+  const int g = lane / 4, tg = lane % 4;               // fragment coordinates
+  const int co0 = blockIdx.x * TILE_N, tile = blockIdx.y, ni = blockIdx.z;
+  const int hw = h * w, wp = w + 2, m0 = tile * TILE_M;
+  const int rows = min(TILE_M, hw - m0);
+
+  // A loads: rows tid/4 and tid/4 + 64, 16-byte vector tid%4; B loads:
+  // output channel tid/4, 16-byte vector tid%4
+  const int a_row = tid / 4, a_vec = tid % 4;
+  const int8_t* a_src[2];
+  bool a_ok[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int m = m0 + a_row + 64 * i;
+    a_ok[i] = m < hw;
+    const int mm = a_ok[i] ? m : 0;
+    a_src[i] = xp + (((size_t)ni * (h + 2) + mm / w) * wp + mm % w) * c +
+               a_vec * 16;
+  }
+  const int8_t* b_src = wt + (size_t)(co0 + a_row) * c + a_vec * 16;
+
+  int d[2][4][4] = {};
+  for (int tap = 0; tap < 9; ++tap) {
+    const size_t tap_off = ((size_t)(tap / 3) * wp + tap % 3) * c;
+    for (int k0 = 0; k0 < c; k0 += BK8) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (a_ok[i]) v = *reinterpret_cast<const uint4*>(a_src[i] + tap_off + k0);
+        *reinterpret_cast<uint4*>(as + (a_row + 64 * i) * LD8 + a_vec * 16) = v;
+      }
+      *reinterpret_cast<uint4*>(bs + a_row * LD8 + a_vec * 16) =
+          *reinterpret_cast<const uint4*>(b_src + (size_t)tap * c * c + k0);
+      __syncthreads();
+      warp_mma_s8_step(as, bs, wm, wn, lane, d);
+      __syncthreads();
+    }
+  }
+  // the int32 accumulators to fp32, at their (pixel, channel) in cs
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = wm * 32 + i * 16 + g, col = wn * 32 + j * 8 + tg * 2;
+      cs[r * CS_LD + col] = static_cast<float>(d[i][j][0]);
+      cs[r * CS_LD + col + 1] = static_cast<float>(d[i][j][1]);
+      cs[(r + 8) * CS_LD + col] = static_cast<float>(d[i][j][2]);
+      cs[(r + 8) * CS_LD + col + 1] = static_cast<float>(d[i][j][3]);
+    }
+  __syncthreads();
+  conv_epilogue(cs, rows, acc, pmean, pm2, pmax, ni, tile, gridDim.y, m0, co0,
+                hw, c);
+}
+
 template <typename T>
 void launch_conv(const T* xp, const T* wt, float* acc, float* pmean,
                  float* pm2, float* pmax, int n, int h, int w, int c,
@@ -253,21 +335,33 @@ void launch_conv(const T* xp, const T* wt, float* acc, float* pmean,
 }
 
 template <typename T>
-int residual_block(const T* xp, const T* wa, const T* wb, const float* w1,
+int residual_block(const T* xp, const T* wa, const void* wb, const float* w1,
                    const float* w2, const float* wsa, T* out, float* acc,
-                   T* tp, float* pmean, float* pm2, float* pmax, float* mean,
-                   float* rstd, float* gate, int n, int h, int w, int c,
-                   int r, int pad, float eps, cudaStream_t s) {
+                   void* tp, float* pmean, float* pm2, float* pmax,
+                   float* mean, float* rstd, float* gate, int n, int h, int w,
+                   int c, int r, int pad, float eps, float int8_k,
+                   cudaStream_t s) {
   const int hw = h * w, tiles = (hw + TILE_M - 1) / TILE_M;
   launch_conv<T>(xp, wa, acc, pmean, pm2, nullptr, n, h, w, c, tiles, s);
   DUCOSY_CHECK_LAUNCH();
   finalize_stats<<<(n * c + 255) / 256, 256, 0, s>>>(pmean, pm2, mean, rstd,
                                                       n, tiles, c, hw, eps);
   DUCOSY_CHECK_LAUNCH();
-  norm_apply<float, T><<<dim3(w + 2, h + 2, n), APPLY_THREADS, 0, s>>>(
-      acc, mean, rstd, tp, h, w, c, 1, 1);
-  DUCOSY_CHECK_LAUNCH();
-  launch_conv<T>(tp, wb, acc, pmean, pm2, pmax, n, h, w, c, tiles, s);
+  const dim3 agrid(w + 2, h + 2, n);
+  if (int8_k > 0.f) {
+    norm_apply_int8<float, float><<<agrid, APPLY_THREADS, 0, s>>>(
+        acc, mean, rstd, static_cast<int8_t*>(tp), h, w, c, 1, int8_k);
+    DUCOSY_CHECK_LAUNCH();
+    conv3x3_int8<<<dim3(c / TILE_N, tiles, n), CONV_THREADS, 0, s>>>(
+        static_cast<const int8_t*>(tp), static_cast<const int8_t*>(wb), acc,
+        pmean, pm2, pmax, h, w, c);
+  } else {
+    norm_apply<float, T><<<agrid, APPLY_THREADS, 0, s>>>(
+        acc, mean, rstd, static_cast<T*>(tp), h, w, c, 1, 1);
+    DUCOSY_CHECK_LAUNCH();
+    launch_conv<T>(static_cast<const T*>(tp), static_cast<const T*>(wb), acc,
+                   pmean, pm2, pmax, n, h, w, c, tiles, s);
+  }
   DUCOSY_CHECK_LAUNCH();
   return launch_tail<T, float>(acc, xp, w1, w2, wsa, out, pmean, pm2, pmax,
                                mean, rstd, gate, n, h, w, c, r, tiles, pad, 1,
@@ -278,27 +372,27 @@ int residual_block(const T* xp, const T* wa, const T* wb, const float* w1,
 }  // namespace ducosy
 
 // One residual block: xp (n, h+2, w+2, c) -> out (n, h+2*pad, w+2*pad, c).
-// wa/wb (9*c, c) io dtype; w1 (c, r), w2 (r, c), wsa (2*49) fp32. Scratch:
-// acc (n, h*w, c) fp32, tp like xp, pmean/pm2/pmax (n, tiles, c),
-// mean/rstd/gate (n, c). Returns cudaGetLastError() of the first failing
-// launch, or 0. Launches on `stream` and does not synchronize.
+// wa (9*c, c) io dtype; wb (9*c, c) io dtype as (tap, cin, cout), or, when
+// int8_k = 255 / S > 0 (K1q), int8 as (tap, cout, cin); w1 (c, r),
+// w2 (r, c), wsa (2*49) fp32. Scratch: acc (n, h*w, c) fp32, tp like xp
+// (int8 for K1q), pmean/pm2/pmax (n, tiles, c), mean/rstd/gate (n, c).
+// Returns cudaGetLastError() of the first failing launch, or 0. Launches
+// on `stream` and does not synchronize.
 extern "C" int ducosy_residual_block(
     const void* xp, const void* wa, const void* wb, const float* w1,
     const float* w2, const float* wsa, void* out, float* acc, void* tp,
     float* pmean, float* pm2, float* pmax, float* mean, float* rstd,
     float* gate, int n, int h, int w, int c, int r, int pad, float eps,
-    int is_bf16, void* stream) {
+    float int8_k, int is_bf16, void* stream) {
   using namespace ducosy;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return residual_block<bf16>(
-        static_cast<const bf16*>(xp), static_cast<const bf16*>(wa),
-        static_cast<const bf16*>(wb), w1, w2, wsa, static_cast<bf16*>(out),
-        acc, static_cast<bf16*>(tp), pmean, pm2, pmax, mean, rstd, gate, n, h,
-        w, c, r, pad, eps, s);
+        static_cast<const bf16*>(xp), static_cast<const bf16*>(wa), wb, w1,
+        w2, wsa, static_cast<bf16*>(out), acc, tp, pmean, pm2, pmax, mean,
+        rstd, gate, n, h, w, c, r, pad, eps, int8_k, s);
   return residual_block<float>(
-      static_cast<const float*>(xp), static_cast<const float*>(wa),
-      static_cast<const float*>(wb), w1, w2, wsa, static_cast<float*>(out),
-      acc, static_cast<float*>(tp), pmean, pm2, pmax, mean, rstd, gate, n, h,
-      w, c, r, pad, eps, s);
+      static_cast<const float*>(xp), static_cast<const float*>(wa), wb, w1,
+      w2, wsa, static_cast<float*>(out), acc, tp, pmean, pm2, pmax, mean,
+      rstd, gate, n, h, w, c, r, pad, eps, int8_k, s);
 }

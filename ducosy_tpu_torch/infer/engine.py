@@ -16,6 +16,13 @@ loop enqueues each chunk's kernels on the current CUDA stream.
 
 bf16 is the serving default; fp32 is the parity mode and switches cuDNN
 and matmul TF32 off (process-wide) so fp32 means fp32.
+
+``quant="trunk"|"full"`` (``trunk_int8=True`` is "trunk") is quantized
+serving, as the JAX engine's (ducosy_tpu/infer/engine.py:158-179). The JAX
+package runs it in its packed (space-to-depth) forward only; the port has
+no packed forward (``forward="packed"`` raises), so the quantized modes
+live in its single true-layout forward (models/generator.py), with the
+int8 weights quantized once from the state dict's fp32 values.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from ducosy_tpu_torch.models.convert import load_torch_state_dict
 from ducosy_tpu_torch.models.generator import Generator
 from ducosy_tpu_torch.ops import hu
 from ducosy_tpu_torch.ops.filters import gaussian_filter_1d
+from ducosy_tpu_torch.ops.quant import INT8_NORM_SCALE, check_quant
 from ducosy_tpu_torch.ops.resize import resize_hw
 
 
@@ -47,16 +55,18 @@ class DualGeneratorEngine:
                  compute_dtype: torch.dtype = torch.bfloat16,
                  device: str | torch.device = "cuda", trunk: str = "chain",
                  forward: str = "module", quant: str | None = None,
-                 mesh=None):
+                 trunk_int8: bool = False, mesh=None):
         self.device = require_cuda(device)
         if forward != "module":
             raise NotImplementedError(
                 f"forward={forward!r}: the space-to-depth packed forward is "
                 "not ported (ROADMAP.md Queue 1, item 6)")
-        if quant is not None:
-            raise NotImplementedError(
-                f"quant={quant!r}: quantized serving is not ported (ROADMAP.md "
-                "Queue 1, item 6; K1 quant=True)")
+        if quant is None and trunk_int8:
+            quant = "trunk"
+        self.quant = check_quant(quant)
+        if quant:
+            # as the JAX engine names it; DUCOSY_INT8_SCALE moves it
+            self.quant_calibration = f"static-{INT8_NORM_SCALE:g}sigma"
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device serving is not ported (ROADMAP.md Queue 1, "
@@ -78,7 +88,7 @@ class DualGeneratorEngine:
         self.img_size = img_size
 
         def build(sd):
-            gen = Generator.from_state_dict(sd, trunk=trunk)
+            gen = Generator.from_state_dict(sd, trunk=trunk, quant=quant)
             gen = gen.to(device=self.device, dtype=compute_dtype)
             gen = gen.to(memory_format=torch.channels_last)
             return gen.eval().requires_grad_(False)

@@ -6,7 +6,10 @@ instance_norm.py:206, forward with ``relu`` and ``pad``). On the serving
 path it normalizes down1 (N, 256, 256, 128) and down2 (N, 128, 128, 256);
 the down2 call also writes the trunk's first reflect pad, giving
 (N, 130, 130, 256). On the training trunk it is each block's first norm
-(ReLU, pad 1).
+(ReLU, pad 1). Its K2p options: ``phases`` pools the statistics over
+space-to-depth phase groups (channel = phase * C + c; on no serving path),
+and ``instance_norm_int8`` writes shifted-grid int8 for an int8 conv (each
+block's first norm of the tail trunk under quantized serving).
 
 K3 replaces ``instance_norm_bwd_pallas`` (instance_norm.py:297), the
 backward of that training-trunk norm. ``instance_norm_fused`` is the
@@ -17,8 +20,9 @@ the fp32 statistics, as the JAX ``instance_norm_fused`` custom VJP does
 The kernels (``csrc/instance_norm.cu``, ``csrc/instance_norm_bwd.cu``) are
 CUDA C++ and share their statistics code with K1. The ``*_plain``
 functions are the same math in plain PyTorch: the TPU package's XLA
-composition (fp32 centred statistics, eps 1e-5, no affine) and its
-analytic backward (instance_norm.py:456-466).
+composition (fp32 centred statistics, eps 1e-5, no affine; the int8 write
+quantizes the value rounded to the io dtype) and its analytic backward
+(instance_norm.py:456-466).
 """
 from __future__ import annotations
 
@@ -34,31 +38,63 @@ from ducosy_tpu_torch.models.layers import (
     reflect_pad_adjoint,
 )
 from ducosy_tpu_torch.ops.kernels import _build
+from ducosy_tpu_torch.ops.quant import (
+    INT8_GRID,
+    INT8_NORM_SCALE,
+    quantize_shifted,
+)
 
 TILE_M = 128   # pixels per statistics tile (csrc/common.cuh)
 TILE_N = 64    # channels per tile; C must be a multiple
 
 
+def _normalize_phases(x: torch.Tensor, phases: int, eps: float):
+    """IN of an NHWC tensor in fp32, statistics pooled over (H, W) and, when
+    phases > 1, over the phase groups of the packed channel axis (channel =
+    phase * C + c), as ``_phase_stats`` (instance_norm.py:333-346)."""
+    if phases == 1:
+        return _instance_norm(x, eps).to(torch.float32)
+    n, h, w, cf = x.shape
+    g = x.to(torch.float32).reshape(n, h, w, phases, cf // phases)
+    gc = g - g.mean(dim=(1, 2, 3), keepdim=True)
+    inv = torch.reciprocal(torch.sqrt(gc.square().mean(dim=(1, 2, 3),
+                                                       keepdim=True) + eps))
+    return (gc * inv).reshape(n, h, w, cf)
+
+
 def instance_norm_plain(x: torch.Tensor, *, relu: bool = False, pad: int = 0,
+                        phases: int = 1,
                         eps: float = EPS_INSTANCE_NORM) -> torch.Tensor:
-    """Plain PyTorch K2: IN (fp32 stats), optional ReLU, reflect pad."""
-    y = _instance_norm(x, eps)
+    """Plain PyTorch K2: IN (fp32 stats, pooled over ``phases`` groups),
+    optional ReLU, rounded to x's dtype, reflect pad (``_xla_forward``,
+    instance_norm.py:349-359)."""
+    y = _normalize_phases(x, phases, eps)
     if relu:
         y = torch.relu(y)
-    return reflect_pad(y, pad)
+    return reflect_pad(y.to(x.dtype), pad)
+
+
+def instance_norm_int8_plain(x: torch.Tensor, *, pad: int = 0,
+                             scale: float = INT8_NORM_SCALE, phases: int = 1,
+                             eps: float = EPS_INSTANCE_NORM) -> torch.Tensor:
+    """Plain PyTorch K2 with ``int8_scale``: IN + ReLU rounded to x's dtype,
+    reflect-padded, then the shifted-grid quantize in fp32 (the XLA path of
+    ``instance_norm_int8``, instance_norm.py:384-403)."""
+    return quantize_shifted(instance_norm_plain(x, relu=True, pad=pad,
+                                                phases=phases, eps=eps),
+                            scale)
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     dll = _build.load_library("instance_norm")
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dll.ducosy_instance_norm.restype = i
-    dll.ducosy_instance_norm.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
-                                         ctypes.c_float, i, p]
+    dll.ducosy_instance_norm.argtypes = [p] * 6 + [i] * 7 + [f, f, i, p]
     return dll
 
 
-def _validate(x: torch.Tensor, pad: int) -> None:
+def _validate(x: torch.Tensor, pad: int, phases: int = 1) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"instance_norm kernel: tensor on {x.device}; the "
                          "kernel takes CUDA tensors (CPU runs the plain path)")
@@ -74,20 +110,16 @@ def _validate(x: torch.Tensor, pad: int) -> None:
     if pad not in (0, 1) or (pad and min(h, w) < 2):
         raise ValueError(f"instance_norm kernel: pad={pad} on {h}x{w} "
                          "(pad 0 or 1, reflect needs H, W >= 2)")
+    if phases < 1 or c % phases:
+        raise ValueError(f"instance_norm kernel: phases={phases} must divide "
+                         f"C={c}")
 
 
-def instance_norm(x: torch.Tensor, *, relu: bool = False, pad: int = 0,
-                  eps: float = EPS_INSTANCE_NORM) -> torch.Tensor:
-    """IN(+ReLU) of an NHWC tensor, reflect-padded by ``pad``: the K2 kernel
-    for a CUDA tensor, the plain version for a CPU tensor."""
-    if x.device.type == "cpu":
-        return instance_norm_plain(x, relu=relu, pad=pad, eps=eps)
-    _validate(x, pad)
+def _launch(x: torch.Tensor, out: torch.Tensor, relu: bool, pad: int,
+            phases: int, int8_k: float, eps: float) -> None:
     n, h, w, c = x.shape
     tiles = -(-h * w // TILE_M)
     f32 = dict(dtype=torch.float32, device=x.device)
-    out = torch.empty((n, h + 2 * pad, w + 2 * pad, c), dtype=x.dtype,
-                      device=x.device)
     pmean = torch.empty((n, tiles, c), **f32)
     pm2 = torch.empty((n, tiles, c), **f32)
     mean = torch.empty((n, c), **f32)
@@ -98,13 +130,52 @@ def instance_norm(x: torch.Tensor, *, relu: bool = False, pad: int = 0,
         status = dll.ducosy_instance_norm(
             x.data_ptr(), out.data_ptr(), pmean.data_ptr(), pm2.data_ptr(),
             mean.data_ptr(), rstd.data_ptr(), n, h, w, c, int(relu), pad,
-            float(eps), int(x.dtype == torch.bfloat16), stream)
+            phases, int8_k, float(eps), int(x.dtype == torch.bfloat16),
+            stream)
     _build.check(dll, status, "instance_norm kernel launch")
+
+
+def instance_norm(x: torch.Tensor, *, relu: bool = False, pad: int = 0,
+                  phases: int = 1,
+                  eps: float = EPS_INSTANCE_NORM) -> torch.Tensor:
+    """IN(+ReLU) of an NHWC tensor, reflect-padded by ``pad``, statistics
+    pooled over ``phases`` channel groups: the K2 kernel for a CUDA tensor,
+    the plain version for a CPU tensor."""
+    if x.device.type == "cpu":
+        return instance_norm_plain(x, relu=relu, pad=pad, phases=phases,
+                                   eps=eps)
+    _validate(x, pad, phases)
+    n, h, w, c = x.shape
+    out = torch.empty((n, h + 2 * pad, w + 2 * pad, c), dtype=x.dtype,
+                      device=x.device)
+    _launch(x, out, relu, pad, phases, 0.0, eps)
     instance_norm.launches += 1
     return out
 
 
 instance_norm.launches = 0
+
+
+def instance_norm_int8(x: torch.Tensor, *, pad: int = 0,
+                       scale: float = INT8_NORM_SCALE, phases: int = 1,
+                       eps: float = EPS_INSTANCE_NORM) -> torch.Tensor:
+    """IN + ReLU of an NHWC tensor, reflect-padded by ``pad``, written int8
+    on the shifted grid at the static scale (``instance_norm_int8``,
+    instance_norm.py:384): the K2 kernel's int8 write for a CUDA tensor, the
+    plain version for a CPU tensor. Counted apart from ``instance_norm``."""
+    if x.device.type == "cpu":
+        return instance_norm_int8_plain(x, pad=pad, scale=scale,
+                                        phases=phases, eps=eps)
+    _validate(x, pad, phases)
+    n, h, w, c = x.shape
+    out = torch.empty((n, h + 2 * pad, w + 2 * pad, c), dtype=torch.int8,
+                      device=x.device)
+    _launch(x, out, True, pad, phases, INT8_GRID / scale, eps)
+    instance_norm_int8.launches += 1
+    return out
+
+
+instance_norm_int8.launches = 0
 
 
 def instance_norm_bwd_plain(x: torch.Tensor, g: torch.Tensor, *,

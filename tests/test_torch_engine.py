@@ -68,22 +68,24 @@ def _engine(st, lung, **kw):
     return DualGeneratorEngine(st, lung, **kw)
 
 
-@pytest.mark.parametrize("blocks", [3, 4])
+@pytest.mark.parametrize("blocks,in_ch", [(3, 1), (4, 1), (3, 3)],
+                         ids=["3", "4", "3-stem3ch"])
 @pytest.mark.parametrize("trunk", ["chain", "plain"])
-def test_generator_matches_jax(blocks, trunk):
+def test_generator_matches_jax(blocks, in_ch, trunk):
     """Port forward vs Generator.apply at fp32, with non-zero biases. At 3
     blocks the chain trunk is one group of 3; at 4 a group of 3 plus a
     remainder group of 1. The chain trunk drops the trunk conv biases,
-    which the following InstanceNorms cancel."""
+    which the following InstanceNorms cancel. The 3-channel stem is the
+    image + 2 masks input of the checkpoints the training CLI writes."""
     rng = np.random.default_rng(blocks)
-    sd = init_generator_state_dict(blocks, 1, BASE, blocks)
+    sd = init_generator_state_dict(blocks, in_ch, BASE, blocks)
     for k in sd:
         if k.endswith(".bias"):
             sd[k] = rng.normal(0, 0.1, sd[k].shape).astype(np.float32)
     params = generator_params_from_torch(sd, blocks)
-    x = rng.uniform(-1, 1, (2, SIZE, SIZE, 1)).astype(np.float32)
-    ref = JaxGenerator(1, blocks, BASE).apply({"params": params},
-                                              jnp.asarray(x))
+    x = rng.uniform(-1, 1, (2, SIZE, SIZE, in_ch)).astype(np.float32)
+    ref = JaxGenerator(in_ch, blocks, BASE).apply({"params": params},
+                                                  jnp.asarray(x))
     gen = Generator.from_state_dict(sd, trunk=trunk).eval()
     with torch.inference_mode():
         got = gen(torch.from_numpy(x))
@@ -178,8 +180,9 @@ def test_engine_default_device_requires_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"quant": "trunk"}, "quant"), ({"forward": "packed"}, "packed"),
-    ({"mesh": object()}, "multi-device"), ({"masks": True}, "mask")])
+    ({"forward": "packed"}, "packed"), ({"mesh": object()}, "multi-device"),
+    ({"masks": True}, "mask")],
+    ids=["kw1-packed", "kw2-multi-device", "kw3-mask"])
 def test_engine_refuses_unported_modes(kw, match):
     sd = init_generator_state_dict(0, 1, BASE, 1)
     st = sd
@@ -246,10 +249,60 @@ def test_generate_cli_rewrites_compressed_series(tmp_path):
         assert ds.pixel_array.shape == (SIZE, SIZE)
 
 
+@pytest.mark.parametrize("kw,want", [
+    ({"quant": "int4"}, None), ({"quant": "trunk"}, "trunk"),
+    ({"quant": "full"}, "full"), ({"trunk_int8": True}, "trunk")])
+def test_engine_quant_modes(kw, want):
+    """quant None/"trunk"/"full" with the trunk_int8 alias, as the JAX
+    engine takes them; another mode raises ValueError naming quant."""
+    sd = init_generator_state_dict(0, 1, BASE, 1)
+    if want is None:
+        with pytest.raises(ValueError, match="quant"):
+            _engine(sd, sd, **kw)
+        return
+    eng = _engine(sd, sd, **kw)
+    assert eng.quant == want and eng.st_generator.quant == want
+    assert eng.quant_calibration == "static-12sigma"
+    assert eng.st_generator.qweights["conv2"][0].dtype == torch.int8
+
+
+@pytest.mark.parametrize("flags,quant", [(["--quant", "trunk"], "trunk"),
+                                         (["--trunk_int8"], "trunk"),
+                                         (["--quant", "full"], "full")])
+def test_generate_cli_writes_quantized_series(tmp_path, flags, quant):
+    """--quant trunk|full and --trunk_int8 on the CPU plain path: the CLI
+    writes the series of a direct quantized run_patient."""
+    write_dataset(str(tmp_path / "input"), n_patients=1, n_slices=3,
+                  size=SIZE)
+    sds = [init_generator_state_dict(s, 1, BASE, BLOCKS) for s in (8, 9)]
+    paths = []
+    for name, sd in zip(("st", "lung"), sds):
+        paths.append(str(tmp_path / f"{name}.pth"))
+        torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, paths[-1])
+    done = tgen.main([
+        "--input_dir_root", str(tmp_path / "input"),
+        "--output_dir_root", str(tmp_path / "output"),
+        "--dataset_names", "SynthSet", "--img_size", str(SIZE),
+        "--slice_batch", "2", "--soft_tissue_model", paths[0],
+        "--lung_model", paths[1], "--compute_dtype", "float32",
+        "--device", "cpu", *flags])
+    assert done == 1
+    src = tmp_path / "input" / "SynthSet" / "patient00" / "POST VUE"
+    vol = np.stack([dcmread(str(f)).pixel_array
+                    for f in sorted(src.glob("*.dcm"))])
+    want = _engine(*sds, quant=quant).run_patient(vol, 1.0, -1024.0,
+                                                  chunk=2).astype(vol.dtype)
+    plain = _engine(*sds).run_patient(vol, 1.0, -1024.0, chunk=2)
+    assert not np.array_equal(want, plain)   # the int8 path really ran
+    out = tmp_path / "output" / "SynthSet" / "patient00"
+    for i, f in enumerate(sorted(out.glob("*.dcm"))):
+        np.testing.assert_array_equal(dcmread(str(f)).pixel_array, want[i])
+
+
 @pytest.mark.parametrize("flags", [
-    ["--write_working"], ["--quant", "trunk"], ["--trunk_int8"],
-    ["--num_devices", "2"], ["--synthesis_mode", "additive"],
-    ["--soft_squeeze"]])
+    ["--write_working"], ["--num_devices", "2"],
+    ["--synthesis_mode", "additive"], ["--soft_squeeze"]],
+    ids=["flags0", "flags3", "flags4", "flags5"])
 def test_generate_cli_refuses_unported_flags(flags):
     with pytest.raises(NotImplementedError, match="not ported"):
         tgen.main(["--dataset_names", "none", "--device", "cpu", *flags])
