@@ -48,11 +48,29 @@ drives the serving path the way a user does, at full model width:
      losses, their difference, s/step, the peak memory and the remat mode
      are printed.
 
+  3m. K7 (conv3x3_in) and K8 (conv_block_tail), the mega trunk's kernels,
+     against their plain versions on (16, 130, 130, 256), fp32 and bf16: K7
+     pad 1 with and without the int8 write (code agreement) and once on an
+     int8 input; K8 pad 1 and 0, x_pad 1, with and without int8 taps;
+  3p. the P1/P2 prototypes (ops/kernels/proto_conv_in.py): each wrapper
+     against its plain version at the shapes its bench runs, (8 and 32, 130,
+     130, 256) bf16 and n = 8 fp32; then the script's parity and its A/B
+     bench at n = 8 and 32;
+  4m. the engine at trunk="mega" (bf16, the phase-4 generators and phantom):
+     exact K7, K8 and K2 launch counts, fp32 mega against fp32 plain,
+     slices/s in rounds that alternate mega, chain and plain, then
+     quant="trunk" and "full" under mega with counts, slices/s beside the
+     chain trunk's and both fidelity taps against the bf16 engine;
+  8. the generate CLI serves phase 7's trained 3-channel SOFT_TISSUE
+     snapshot with a seeded 2-channel LUNG generator on one synthetic 512^2
+     DICOM patient, masks generated and prefetched on the host: read back
+     from disk and equal to run_patient called directly.
+
 Any failure exits non-zero before the result lines. On success the last
 three lines are the card, a JSON object with one record per kernel, and
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a CUDA device, and outside a checkout of the repo.
-Imports nothing of JAX.
+Imports nothing of JAX and nothing of the JAX package (ducosy_tpu).
 """
 from __future__ import annotations
 
@@ -117,6 +135,55 @@ K2P_SHAPE = (N, 128, 128, 512)
 PROBE_SHAPE = (16384, 256, 256)
 PROBE_BF16_RTOL = 1e-4
 QUANT_MEAN_DHU_MAX = 25.0
+
+# K7 / K8 (the mega trunk's two kernels), tolerances set before any run:
+#  K7 fp32: exact-FMA conv vs cuDNN fp32 (TF32 off), fp32 statistics on
+#    both sides, one conv deep: |d| <= 1e-4 + 1e-4 |ref|.
+#  K7 bf16: the plain version rounds the conv output to bf16 before its
+#    norm, the kernel normalizes the fp32 accumulator and rounds once: two
+#    bf16 ulps, |d| <= 0.0625 + 0.02 |ref|, mean |d| <= 0.01.
+#  K7 int8 write (bf16 and fp32 input) and K7 on an int8 input with int8
+#    weights (exact int32 taps on both sides): both quantize the fp32
+#    normalized value of the same accumulator up to summation order: codes
+#    equal on >= 99.9%, never more than one step apart.
+#  K8 fp32: one block's second half, fp32 throughout: |d| <= 1e-3 + 1e-3
+#    |ref| (the K1 fp32 bound). K8 bf16: the K1 bf16 bound (the plain
+#    version rounds the conv output to bf16 before the tail's norm).
+#  K8 in_int8: kernel and plain version read the same int8 tp; the plain
+#    version dequantizes before the norm, the kernel normalizes the int32
+#    accumulator: fp32 within the one-block K1q bound (1e-2, mean 1e-4),
+#    bf16 within the K1 bf16 bound.
+#  P1/P2 (K7 and K8 without the int8 modes) at their bench's shapes: the
+#    K7 and K8 bounds above, bf16 means included.
+#  P1/P2 parity (fp32, n=2, 32^2, C=128): max |d| < 1e-3, as the TPU script.
+#  Engine, trunk="mega": exact launch counts; fp32 mega within 1 stored unit
+#    of fp32 plain on >= 99.9% of voxels; quant final-tap mean |dHU| <= 25.
+K7_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (0.0625, 0.02)}
+K7_BF16_MEAN_TOL = 0.01
+K8_TOL = {"float32": TOL[("k1", "float32")], "bfloat16": TOL[("k1", "bfloat16")]}
+K8_BF16_MEAN_TOL = K1_BF16_MEAN_TOL
+
+# Published dense peaks of one H100 SXM (NVIDIA's data sheet): the bound of
+# a kernel is the larger of its operations over the peak of their type and
+# its bytes (each input read once, each output written once) over the
+# memory rate.
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+PEAK_BYTES = 3.35e12
+
+
+def bound(nbytes: float, **ops) -> dict:
+    """bound_ms / bound_by from the bytes moved and the operations by type
+    (bf16= and int8= on the tensor cores, fp32= on the CUDA cores)."""
+    t_ops = sum(v / PEAK_OPS[k] for k, v in ops.items())
+    t_bytes = nbytes / PEAK_BYTES
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops > t_bytes else "bytes")
+
+
+def conv_flop(n: int, hw: int, c: int) -> float:
+    """Operations of one 3x3 conv on (n, hw, hw, c -> c)."""
+    return 2.0 * n * hw * hw * 9 * c * c
+
 
 TRAIN_N = 8                      # training batch
 TRAIN_SHAPE = (TRAIN_N, 128, 128, 256)   # trunk activation; R = C / 16
@@ -207,6 +274,7 @@ def compare(got, ref, atol: float, rtol: float):
 
 def check_instance_norm(k2, dev, records):
     import torch
+    import torch.nn.functional as F
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     failures = []
@@ -229,8 +297,16 @@ def check_instance_norm(k2, dev, records):
                 f"max|d|={emax:.3e} mean|d|={emean:.3e} (atol {atol}, rtol "
                 f"{rtol}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
                 f"{'ok' if ok else 'FAIL'}")
-            records[("k2", name, str(dtype)[6:])] = dict(
+            rec = records[("k2", name, str(dtype)[6:])] = dict(
                 max_abs_err=emax, ms=ms, plain_ms=plain_ms)
+            if pad == 0:
+                # the library's call for the same function (no pad): timed
+                # here as a yardstick, used nowhere in the port
+                xc = x.permute(0, 3, 1, 2)
+                rec["library_ms"] = cuda_ms(
+                    lambda: F.relu(F.instance_norm(xc)), 20)
+                log(f"K2 {name}: F.instance_norm + relu "
+                    f"{rec['library_ms']:.4f} ms")
             if not ok:
                 failures.append(f"K2 {name} {dtype}")
     if failures:
@@ -315,14 +391,11 @@ def chest_phantom(z: int, size: int, seed: int,
     return vol
 
 
-def run_engine_phase(k1, k2, dev, records):
+def run_engine_phase(k1, k2, dev, st, lung, records):
     import torch
 
     from ducosy_tpu_torch.infer.engine import DualGeneratorEngine
-    from ducosy_tpu_torch.models.convert import init_generator_state_dict
 
-    st = init_generator_state_dict(SEED + 10)
-    lung = init_generator_state_dict(SEED + 11)
     vol = chest_phantom(SLICES, SIZE, SEED)
     n_chunks = -(-SLICES // N)
 
@@ -379,7 +452,6 @@ def run_engine_phase(k1, k2, dev, records):
     dhu = np.abs(out_fast.astype(np.float64) - ref32.astype(np.float64))
     log(f"engine bf16 chain vs fp32 plain: |dHU| mean {dhu.mean():.4f} p99 "
         f"{np.percentile(dhu, 99):.4f} max {dhu.max():.1f}")
-    return st, lung
 
 
 def code_agreement(got, ref):
@@ -526,19 +598,351 @@ def check_tap_probe(tap, dev, records):
             err = float((got.double() - ref.double()).abs().max())
             ok = bool(torch.equal(got, ref)) if name == "int8" else \
                 err <= PROBE_BF16_RTOL * float(ref.abs().max())
+            before = tap.tap_matmul.launches
             ms = cuda_ms(lambda: tap.tap_matmul(a, b, taps), 20)
+            if (name, taps) == ("int8", 9):
+                # the probe's own path is its rate loop: the launches of the
+                # loop that the kernels line reports
+                records["p3_launches"] = tap.tap_matmul.launches - before
             plain_ms = cuda_ms(lambda: tap.tap_matmul_plain(a, b, taps), 20)
             tops = 2.0 * m * k * n * taps / (ms * 1e-3) / 1e12
             log(f"P3 {name} ({m},{k})x({k},{n}) x{taps}: max|d|={err:.3e} "
                 f"({'exact' if name == 'int8' else 'rel 1e-4 of max'}) "
                 f"kernel {ms:.4f} ms = {tops:.1f} TOP/s, plain {plain_ms:.4f}"
                 f" ms {'ok' if ok else 'FAIL'}")
-            records[("p3", name, taps)] = dict(max_abs_err=err, ms=ms,
-                                               plain_ms=plain_ms, tops=tops)
+            rec = records[("p3", name, taps)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, tops=tops)
+            if name == "int8":
+                # one library call of the same value and work: the taps laid
+                # along K, (m, taps k) x (taps k, n)
+                at, bt = a.repeat(1, taps), b.repeat(taps, 1)
+                if not torch.equal(torch._int_mm(at, bt), ref):
+                    fail("P3: the library product differs from the reference")
+                rec["library_ms"] = cuda_ms(lambda: torch._int_mm(at, bt), 20)
+                log(f"P3 int8 x{taps}: torch._int_mm over K = {taps * k} "
+                    f"{rec['library_ms']:.4f} ms")
             if not ok:
                 failures.append(f"P3 {name} x{taps}")
     if failures:
         fail(f"kernel disagrees with its plain version: {failures}")
+
+
+def check_conv_in(k7, dev, records):
+    """Phase 3m: K7 and K8 against their plain versions at the trunk shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from ducosy_tpu_torch.ops.quant import (INT8_NORM_SCALE,
+                                            quantize_weights_int8)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    n, hw, _, c = K1_SHAPE
+    r = c // 16
+    x = torch.randn((n, c, hw, hw), generator=gen, device=dev)
+    xp = F.pad(x, (1, 1, 1, 1), mode="reflect").permute(0, 2, 3, 1) \
+        .contiguous()
+    wa = torch.randn((3, 3, c, c), generator=gen, device=dev) * 0.02
+    wb = torch.randn((3, 3, c, c), generator=gen, device=dev) * 0.02
+    tail = (torch.randn((c, r), generator=gen, device=dev) * 0.1,
+            torch.randn((r, c), generator=gen, device=dev) * 0.1,
+            torch.randn((7, 7, 2, 1), generator=gen, device=dev) * 0.1)
+    waq, _ = quantize_weights_int8(wa)
+    wbq, wbs = quantize_weights_int8(wb)
+    scratch = k7.make_scratch(n, hw, hw, c, dev)
+    failures = []
+
+    def codes(name, got, ref, key, fn, plain_fn):
+        share, dmax = code_agreement(got, ref)
+        ok = share >= CODE_SHARE and dmax <= 1
+        ms, plain_ms = cuda_ms(fn, 5), cuda_ms(plain_fn, 3)
+        log(f"{name}: codes equal {share:.6f}, max step {dmax} kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms {'ok' if ok else 'FAIL'}")
+        records[key] = dict(max_abs_err=float(dmax), code_share=share, ms=ms,
+                            plain_ms=plain_ms)
+        if not ok:
+            failures.append(name)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:]
+        carry = xp.to(dtype)
+        # ---- K7, pad 1: io-dtype write, then the int8 write
+        got = k7.conv3x3_in(carry, wa, pad=1, scratch=scratch)
+        ref = k7.conv3x3_in_plain(carry, wa, pad=1)
+        torch.cuda.synchronize()
+        atol, rtol = K7_TOL[dname]
+        ok, emax, emean = compare(got, ref, atol, rtol)
+        if dtype == torch.bfloat16 and emean > K7_BF16_MEAN_TOL:
+            ok = False
+        ms = cuda_ms(lambda: k7.conv3x3_in(carry, wa, pad=1,
+                                           scratch=scratch), 5)
+        plain_ms = cuda_ms(lambda: k7.conv3x3_in_plain(carry, wa, pad=1), 3)
+        log(f"K7 pad=1 {tuple(carry.shape)} {dname}: max|d|={emax:.3e} "
+            f"mean|d|={emean:.3e} (atol {atol}, rtol {rtol}) kernel {ms:.3f} "
+            f"ms, plain {plain_ms:.3f} ms {'ok' if ok else 'FAIL'}")
+        records[("k7", dname)] = dict(max_abs_err=emax, ms=ms,
+                                      plain_ms=plain_ms)
+        if not ok:
+            failures.append(f"K7 {dname}")
+        kw = dict(pad=1, int8_scale=INT8_NORM_SCALE)
+        t8 = k7.conv3x3_in(carry, wa, scratch=scratch, **kw)
+        ref8 = k7.conv3x3_in_plain(carry, wa, **kw)
+        torch.cuda.synchronize()
+        codes(f"K7 int8 write pad=1 {dname}", t8, ref8, ("k7_int8", dname),
+              lambda: k7.conv3x3_in(carry, wa, scratch=scratch, **kw),
+              lambda: k7.conv3x3_in_plain(carry, wa, **kw))
+        if dtype == torch.bfloat16:
+            # ---- K7 on an int8 input with int8 weights (not on the trunk)
+            got = k7.conv3x3_in(t8, waq, scratch=scratch, **kw)
+            ref = k7.conv3x3_in_plain(t8, waq, **kw)
+            torch.cuda.synchronize()
+            codes("K7 int8 input, int8 write pad=1", got, ref, "k7_in8",
+                  lambda: k7.conv3x3_in(t8, waq, scratch=scratch, **kw),
+                  lambda: k7.conv3x3_in_plain(t8, waq, **kw))
+        # ---- K8 on K7's outputs: pad 1 and 0, then int8 taps
+        t = k7.conv3x3_in(carry, wa, pad=1, scratch=scratch)
+        for in_int8 in (False, True):
+            tp, w = (t8, wbq) if in_int8 else (t, wb)
+            qkw = dict(in_int8=True, w_scale=wbs) if in_int8 else {}
+            for pad in (1, 0):
+                kw8 = dict(pad=pad, x_pad=1, **qkw)
+                got = k7.conv_block_tail(tp, carry, w, *tail, scratch=scratch,
+                                         **kw8)
+                ref = k7.conv_block_tail_plain(tp, carry, w, *tail, **kw8)
+                torch.cuda.synchronize()
+                if in_int8:
+                    atol, rtol = K1Q_TOL[dname]
+                    mean_tol = K1Q_MEAN_TOL[dname]
+                else:
+                    atol, rtol = K8_TOL[dname]
+                    mean_tol = K8_BF16_MEAN_TOL if dtype == torch.bfloat16 \
+                        else float("inf")
+                ok, emax, emean = compare(got, ref, atol, rtol)
+                ok = ok and emean <= mean_tol
+                ms = cuda_ms(lambda: k7.conv_block_tail(
+                    tp, carry, w, *tail, scratch=scratch, **kw8), 5)
+                plain_ms = cuda_ms(lambda: k7.conv_block_tail_plain(
+                    tp, carry, w, *tail, **kw8), 3)
+                log(f"K8 pad={pad} x_pad=1 in_int8={in_int8} {dname}: "
+                    f"max|d|={emax:.3e} mean|d|={emean:.3e} (atol {atol}, "
+                    f"rtol {rtol}, mean {mean_tol}) kernel {ms:.3f} ms, plain "
+                    f"{plain_ms:.3f} ms {'ok' if ok else 'FAIL'}")
+                records[("k8", in_int8, pad, dname)] = dict(
+                    max_abs_err=emax, ms=ms, plain_ms=plain_ms)
+                if not ok:
+                    failures.append(f"K8 pad={pad} int8={in_int8} {dname}")
+    if failures:
+        fail(f"kernel disagrees with its plain version: {failures}")
+
+
+def run_proto_phase(proto, k7, dev, records):
+    """Phase 3p: P1 and P2 against their plain versions at the shapes their
+    bench runs, then the prototypes' own parity and A/B bench."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    hw, c = K1_SHAPE[1], K1_SHAPE[3]
+    r = c // 16
+    rand = lambda *s, std=1.0: torch.randn(s, generator=gen, device=dev) * std
+    wa, wb = rand(3, 3, c, c, std=0.02), rand(3, 3, c, c, std=0.02)
+    tail = (rand(c, r, std=0.1), rand(r, c, std=0.1),
+            rand(7, 7, 2, 1, std=0.1))
+    failures = []
+    for n, dtype in ((8, torch.bfloat16), (8, torch.float32),
+                     (32, torch.bfloat16)):
+        dname = str(dtype)[6:]
+        bf16 = dtype == torch.bfloat16
+        carry = rand(n, hw + 2, hw + 2, c).to(dtype)
+        scratch = k7.make_scratch(n, hw, hw, c, dev)
+        t = proto.conv3x3_in(carry, wa, scratch=scratch)
+        cases = (
+            ("p1", "P1 conv3x3_in", K7_TOL[dname], K7_BF16_MEAN_TOL, t,
+             lambda: proto.conv3x3_in(carry, wa, scratch=scratch),
+             lambda: k7.conv3x3_in_plain(carry, wa)),
+            ("p2", "P2 conv_block_tail", K8_TOL[dname], K8_BF16_MEAN_TOL,
+             proto.conv_block_tail(t, carry, wb, *tail, scratch=scratch),
+             lambda: proto.conv_block_tail(t, carry, wb, *tail,
+                                           scratch=scratch),
+             lambda: k7.conv_block_tail_plain(t, carry, wb, *tail)))
+        for key, name, (atol, rtol), mean_tol, got, fn, plain_fn in cases:
+            ref = plain_fn()
+            torch.cuda.synchronize()
+            ok, emax, emean = compare(got, ref, atol, rtol)
+            if bf16 and emean > mean_tol:
+                ok = False
+            ms, plain_ms = cuda_ms(fn, 5), cuda_ms(plain_fn, 3)
+            log(f"{name} {tuple(carry.shape)} {dname}: max|d|={emax:.3e} "
+                f"mean|d|={emean:.3e} (atol {atol}, rtol {rtol}"
+                + (f", mean {mean_tol}" if bf16 else "")
+                + f") kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+                f"{'ok' if ok else 'FAIL'}")
+            records[(key, n, dname)] = dict(max_abs_err=emax, ms=ms,
+                                            plain_ms=plain_ms)
+            if not ok:
+                failures.append(f"{name} n={n} {dname}")
+    if failures:
+        fail(f"kernel disagrees with its plain version: {failures}")
+    del carry, scratch, t, cases, got, ref
+    torch.cuda.empty_cache()
+
+    # the prototypes' own path, counted: parity, then the bench
+    proto.conv3x3_in.launches = proto.conv_block_tail.launches = 0
+    proto.parity(device=dev)                  # raises at 1e-3
+    for n in (8, 32):
+        records[("proto", n)] = proto.bench(n, device=dev)
+        torch.cuda.empty_cache()
+    records[("proto", "launches")] = dict(
+        conv3x3_in=proto.conv3x3_in.launches,
+        conv_block_tail=proto.conv_block_tail.launches)
+    log(f"proto launches {records[('proto', 'launches')]}")
+    if not all(records[("proto", "launches")].values()):
+        fail("the prototype bench launched no kernel")
+
+
+def profile_patient(run, label: str) -> dict:
+    """One warm patient under torch.profiler: device-busy time (the sum of
+    the kernels' and copies' durations; the engine uses one stream) and the
+    time by kernel name, logged with the ten largest names. The idle share
+    is taken against the traced run's own device span, from the start of
+    its first device event to the end of its last, so the host time before
+    the first kernel and after the last copy is outside it. Where the
+    profiler records no device event the numbers are "not measured";
+    nothing is judged."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    by: dict = {}
+    first, last = float("inf"), 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            first = min(first, e.time_range.start)
+            last = max(last, e.time_range.end)
+    busy = sum(by.values())
+    if not busy:
+        log(f"profile {label}: device time not measured (the profiler "
+            "recorded no device event)")
+        return {}
+    span = (last - first) / 1e3
+    ours = sum(v for k, v in by.items() if "ducosy::" in k)
+    log(f"profile {label}: device span {span:.1f} ms (first to last device "
+        f"event of the traced patient), device busy {busy:.1f} ms, idle "
+        f"{100 * (1 - busy / span):.1f}% of the span, the port's kernels "
+        f"{ours:.1f} ms ({100 * ours / busy:.1f}% of busy)")
+    for name, ms in sorted(by.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"  {ms:8.2f} ms {100 * ms / busy:5.1f}%  {name[:90]}")
+    return dict(span_ms=span, busy_ms=busy, ours_ms=ours)
+
+
+def run_mega_engine_phase(k1, k2, k7, dev, st, lung, records):
+    """Phase 4m: the engine at trunk="mega", bf16 and both quant modes."""
+    import torch
+
+    from ducosy_tpu_torch.infer.engine import DualGeneratorEngine
+
+    vol = chest_phantom(SLICES, SIZE, SEED)
+    n_chunks = -(-SLICES // N)
+
+    def engine(trunk, quant=None, dtype=torch.bfloat16):
+        return DualGeneratorEngine(st, lung, img_size=SIZE,
+                                   compute_dtype=dtype, device=dev,
+                                   trunk=trunk, quant=quant)
+
+    def run(eng):
+        t0 = time.perf_counter()
+        out = eng.run_patient(vol, 1.0, -1024.0, chunk=N)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    counters = {"conv3x3_in": k7.conv3x3_in,
+                "conv_block_tail": k7.conv_block_tail,
+                "instance_norm": k2.instance_norm,
+                "residual_chain": k1.residual_chain}
+
+    def counted(eng, what, k2_calls):
+        run(eng)                              # warm-up
+        for f in counters.values():
+            f.launches = 0
+        out, _ = run(eng)                     # the main path, counted
+        got = {k: f.launches for k, f in counters.items()}
+        want = {"conv3x3_in": 2 * BLOCKS * n_chunks,
+                "conv_block_tail": 2 * BLOCKS * n_chunks,
+                "instance_norm": 2 * k2_calls * n_chunks, "residual_chain": 0}
+        log(f"engine {what} mega: launches {got} (expected {want})")
+        if got != want:
+            fail(f"mega {what} launch counts {got} != {want}")
+        if out.dtype != np.int16 or out.shape != vol.shape:
+            fail(f"mega engine output {out.dtype} {out.shape}")
+        records[("launches", "mega", what)] = got
+        return out
+
+    def rates(engines, label):
+        rounds = {k: [] for k in engines}
+        for _ in range(3):                    # alternate the modes
+            for name, eng in engines.items():
+                rounds[name].append(SLICES / run(eng)[1])
+        for name, v in rounds.items():
+            log(f"engine {label} {name}: slices/s median "
+                f"{statistics.median(v):.2f} rounds "
+                f"{[round(x, 2) for x in v]} ({SLICES} x {SIZE}^2, chunk {N}, "
+                f"bf16 compute, incl. upload, postprocess, download)")
+        return {k: statistics.median(v) for k, v in rounds.items()}
+
+    mega = engine("mega")
+    out_mega = counted(mega, "bf16", 2)
+    chain, plain = engine("chain"), engine("plain")
+    ref_out, _ = run(chain)
+    run(plain)
+    d = dhu_stats(out_mega, ref_out)
+    log(f"engine bf16 mega vs bf16 chain: |dHU| mean {d[0]:.4f} p99 "
+        f"{d[1]:.4f} max {d[2]:.1f}")
+    records["mega_slices_per_s"] = rates(
+        {"mega": mega, "chain": chain, "plain": plain}, "bf16")
+    del plain
+    for name, eng in (("mega", mega), ("chain", chain)):
+        records[("profile", name)] = profile_patient(
+            lambda: run(eng), f"bf16 {name}")
+
+    out32, _ = run(engine("mega", dtype=torch.float32))
+    ref32, _ = run(engine("plain", dtype=torch.float32))
+    diff = np.abs(out32.astype(np.int32) - ref32.astype(np.int32))
+    share = float(np.mean(diff <= 1))
+    log(f"engine fp32 mega vs fp32 plain: |d|<=1 on {share:.6f} of voxels, "
+        f"max |d| {int(diff.max())} stored units")
+    if share < STORED_UNIT_SHARE:
+        fail(f"fp32 mega vs plain: {share} < {STORED_UNIT_SHARE}")
+    records["mega_fp32_share"] = share
+
+    for quant in ("trunk", "full"):
+        eng = engine("mega", quant)
+        out = counted(eng, f"quant={quant}", 2 if quant == "trunk" else 1)
+        final = dhu_stats(out, ref_out)
+        sub = vol[:N]
+        raw_ref = chain.generate_batch(sub, 1.0, -1024.0)
+        raw_q = eng.generate_batch(sub, 1.0, -1024.0)
+        keys = ("st_stored", "lung_stored")
+        raw = dhu_stats(np.concatenate([raw_q[k].ravel() for k in keys]),
+                        np.concatenate([raw_ref[k].ravel() for k in keys]))
+        log(f"engine quant={quant} mega vs bf16 chain engine: raw tap |dHU| "
+            f"mean {raw[0]:.4f} p99 {raw[1]:.4f} max {raw[2]:.1f}; final tap "
+            f"|dHU| mean {final[0]:.4f} p99 {final[1]:.4f} max {final[2]:.1f}")
+        records[("fidelity", "mega", quant)] = dict(raw=raw, final=final)
+        if final[0] > QUANT_MEAN_DHU_MAX:
+            fail(f"mega quant={quant}: final-tap mean |dHU| {final[0]} > "
+                 f"{QUANT_MEAN_DHU_MAX}")
+        records[("mega_slices_per_s", quant)] = rates(
+            {"mega": eng, "chain": engine("chain", quant)},
+            f"quant={quant}")
+        records[("profile", quant)] = profile_patient(
+            lambda: run(eng), f"quant={quant} mega")
+        del eng
+        torch.cuda.empty_cache()
 
 
 def dhu_stats(a, b):
@@ -649,8 +1053,8 @@ def run_quant_engine_phase(k1, k2, k4, dev, st, lung, records):
 def run_cli_phase(k1, k2, st, lung, flags=()):
     import torch
 
-    from ducosy_tpu.dicom import dcmread
-    from ducosy_tpu.dicom.codec import new_ct_dataset
+    from ducosy_tpu_torch.dicom import dcmread
+    from ducosy_tpu_torch.dicom.codec import new_ct_dataset
     from ducosy_tpu_torch.cli import generate
 
     vol = chest_phantom(SLICES, SIZE, SEED + 1)
@@ -817,7 +1221,7 @@ def check_training_kernels(k2, k4, dev, records):
 def write_training_tree(root: Path) -> None:
     """TRAIN_PATIENTS synthetic patients of TRAIN_SLICES 512^2 slices: a
     NCCT series and a CECT series with an enhanced aorta and vessels."""
-    from ducosy_tpu.dicom.codec import new_ct_dataset
+    from ducosy_tpu_torch.dicom.codec import new_ct_dataset
 
     for p in range(TRAIN_PATIENTS):
         for series, contrast in (("POST VUE", False), ("POST STD", True)):
@@ -831,7 +1235,9 @@ def write_training_tree(root: Path) -> None:
                 ds.save_as(str(d / f"{i:04d}.dcm"))
 
 
-def run_training_phase(k2, k4, records):
+def run_training_phase(k2, k4, tmp: Path, records):
+    """Phase 7. Leaves its runs under ``tmp`` (phase 8 serves the first
+    run's SOFT_TISSUE snapshot)."""
     from ducosy_tpu_torch.cli import train
 
     counters = (k2.instance_norm, k2.instance_norm_bwd, k4.block_tail,
@@ -839,59 +1245,58 @@ def run_training_phase(k2, k4, records):
     names = ("instance_norm", "instance_norm_bwd", "block_tail",
              "block_tail_bwd")
     results = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        write_training_tree(Path(tmp, "data"))
-        # the kernel trunk as a user runs it, the plain trunk from the same
-        # init and batches, and the kernel trunk under remat, which the
-        # plain trunk needs on this card (its step falls back to it)
-        for trunk, remat in (("tail", "auto"), ("plain", "auto"),
-                             ("tail", "on")):
-            for f in counters:
-                f.launches = 0
-            t0 = time.perf_counter()
-            out = train.main([
-                "--data_root", str(Path(tmp, "data")),
-                "--dataset_names", "Smoke",
-                "--training_dir", str(Path(tmp, f"run_{trunk}_{remat}")),
-                "--img_size", str(SIZE), "--batch_size", str(TRAIN_N),
-                "--num_residual_blocks", str(BLOCKS), "--epochs", "1",
-                "--max_steps_per_epoch", str(TRAIN_STEPS), "--resume", "",
-                "--num_workers", "8", "--trunk", trunk, "--remat", remat])
-            out = out["soft_tissue"]
-            secs = time.perf_counter() - t0
-            launches = dict(zip(names, (f.launches for f in counters)))
-            losses = {k: v for k, v in out.items() if k.startswith("loss")
-                      or k in ("contrast", "val_loss")}
-            if not all(np.isfinite(v) for v in losses.values()):
-                fail(f"training ({trunk}): non-finite losses {losses}")
-            steps = out["step_seconds"]
-            if len(steps) != TRAIN_STEPS:
-                fail(f"training ({trunk}): {len(steps)} steps run")
-            results[(trunk, remat)] = out
-            log(f"training {trunk} remat={remat}: {TRAIN_STEPS} steps + "
-                f"validation in {secs:.1f} s; step seconds "
-                f"{[round(t, 3) for t in steps]}; ended in remat "
-                f"{out['remat']} (fallback {out['oom_fallback']}); peak "
-                f"memory {out['peak_memory_bytes'] / 2**30:.2f} GiB; "
-                f"launches {launches}; losses {losses}")
-            if trunk == "tail":
-                # per generator forward: K2 and K4 once per block; K3, K5 in
-                # each backward; remat recomputes every forward of the G
-                # step; validation runs 2 x 6 forwards without gradients
-                fwd = 6 * BLOCKS * TRAIN_STEPS
-                rerun = 2 if out["remat"] == "on" else 1
-                val = 2 * 6 * BLOCKS
-                want = {"instance_norm": fwd * rerun + val,
-                        "instance_norm_bwd": fwd,
-                        "block_tail": fwd * rerun + val,
-                        "block_tail_bwd": fwd}
-                if out["oom_fallback"] or launches != want:
-                    fail(f"training launch counts {launches} != {want} "
-                         f"(remat fallback: {out['oom_fallback']})")
-                if remat == "auto":
-                    records["train_launches"] = launches
-            elif any(launches.values()):
-                fail(f"the plain trunk launched kernels: {launches}")
+    write_training_tree(Path(tmp, "data"))
+    # the kernel trunk as a user runs it, the plain trunk from the same
+    # init and batches, and the kernel trunk under remat, which the
+    # plain trunk needs on this card (its step falls back to it)
+    for trunk, remat in (("tail", "auto"), ("plain", "auto"),
+                         ("tail", "on")):
+        for f in counters:
+            f.launches = 0
+        t0 = time.perf_counter()
+        out = train.main([
+            "--data_root", str(Path(tmp, "data")),
+            "--dataset_names", "Smoke",
+            "--training_dir", str(Path(tmp, f"run_{trunk}_{remat}")),
+            "--img_size", str(SIZE), "--batch_size", str(TRAIN_N),
+            "--num_residual_blocks", str(BLOCKS), "--epochs", "1",
+            "--max_steps_per_epoch", str(TRAIN_STEPS), "--resume", "",
+            "--num_workers", "8", "--trunk", trunk, "--remat", remat])
+        out = out["soft_tissue"]
+        secs = time.perf_counter() - t0
+        launches = dict(zip(names, (f.launches for f in counters)))
+        losses = {k: v for k, v in out.items() if k.startswith("loss")
+                  or k in ("contrast", "val_loss")}
+        if not all(np.isfinite(v) for v in losses.values()):
+            fail(f"training ({trunk}): non-finite losses {losses}")
+        steps = out["step_seconds"]
+        if len(steps) != TRAIN_STEPS:
+            fail(f"training ({trunk}): {len(steps)} steps run")
+        results[(trunk, remat)] = out
+        log(f"training {trunk} remat={remat}: {TRAIN_STEPS} steps + "
+            f"validation in {secs:.1f} s; step seconds "
+            f"{[round(t, 3) for t in steps]}; ended in remat "
+            f"{out['remat']} (fallback {out['oom_fallback']}); peak "
+            f"memory {out['peak_memory_bytes'] / 2**30:.2f} GiB; "
+            f"launches {launches}; losses {losses}")
+        if trunk == "tail":
+            # per generator forward: K2 and K4 once per block; K3, K5 in
+            # each backward; remat recomputes every forward of the G
+            # step; validation runs 2 x 6 forwards without gradients
+            fwd = 6 * BLOCKS * TRAIN_STEPS
+            rerun = 2 if out["remat"] == "on" else 1
+            val = 2 * 6 * BLOCKS
+            want = {"instance_norm": fwd * rerun + val,
+                    "instance_norm_bwd": fwd,
+                    "block_tail": fwd * rerun + val,
+                    "block_tail_bwd": fwd}
+            if out["oom_fallback"] or launches != want:
+                fail(f"training launch counts {launches} != {want} "
+                     f"(remat fallback: {out['oom_fallback']})")
+            if remat == "auto":
+                records["train_launches"] = launches
+        elif any(launches.values()):
+            fail(f"the plain trunk launched kernels: {launches}")
     first = {k: v["first_metrics"]["loss_G"] for k, v in results.items()}
     med = {k: statistics.median(v["step_seconds"][1:])
            for k, v in results.items()}
@@ -903,6 +1308,176 @@ def run_training_phase(k2, k4, records):
         + ", ".join(f"{t} remat={results[(t, r)]['remat']} {m:.4f}"
                     for (t, r), m in med.items()))
     records["s_per_step"] = med
+
+
+def run_masked_cli_phase(k1, k2, dev, tmp: Path):
+    """Phase 8: the generate CLI serves phase 7's trained 3-channel
+    SOFT_TISSUE snapshot with a seeded 2-channel LUNG generator on one
+    synthetic 512^2 DICOM patient; masks are generated and prefetched on
+    the host."""
+    import torch
+
+    from ducosy_tpu_torch.cli import generate
+    from ducosy_tpu_torch.dicom import dcmread
+    from ducosy_tpu_torch.dicom.codec import new_ct_dataset
+    from ducosy_tpu_torch.infer.engine import DualGeneratorEngine
+    from ducosy_tpu_torch.models.convert import (init_generator_state_dict,
+                                                 load_torch_state_dict)
+
+    st_path = tmp / "run_tail_auto" / "soft_tissue" / "saved_models" / \
+        "G_A2B_last.pth"
+    if not st_path.is_file():
+        fail(f"phase 8 needs phase 7's snapshot {st_path}")
+    lung_path = tmp / "lung2ch.pth"
+    lung = init_generator_state_dict(SEED + 12, 2)
+    torch.save({k: torch.from_numpy(v) for k, v in lung.items()},
+               str(lung_path))
+    vol = chest_phantom(SLICES, SIZE, SEED + 2)
+    ncct = tmp / "input8" / "Smoke" / "patient00" / "POST VUE"
+    ncct.mkdir(parents=True)
+    for i, sl in enumerate(vol):
+        ds = new_ct_dataset(SIZE, SIZE, instance_number=i + 1,
+                            series_description="POST VUE")
+        ds.set_pixel_array(sl.astype(np.uint16))
+        ds.save_as(str(ncct / f"{i:04d}.dcm"))
+    k1.residual_chain.launches = k2.instance_norm.launches = 0
+    t0 = time.perf_counter()
+    done = generate.main([
+        "--input_dir_root", str(tmp / "input8"),
+        "--output_dir_root", str(tmp / "output8"),
+        "--dataset_names", "Smoke", "--img_size", str(SIZE),
+        "--slice_batch", str(N), "--soft_tissue_model", str(st_path),
+        "--lung_model", str(lung_path)])
+    secs = time.perf_counter() - t0
+    n_chunks = -(-SLICES // N)
+    got = (k1.residual_chain.launches, k2.instance_norm.launches)
+    if done != 1 or got != (2 * 3 * n_chunks, 2 * 2 * n_chunks):
+        fail(f"masked CLI: {done} patients, launches {got}")
+    files = sorted((tmp / "output8" / "Smoke" / "patient00").glob("*.dcm"))
+    if len(files) != SLICES:
+        fail(f"masked CLI wrote {len(files)} slices, expected {SLICES}")
+    out = np.stack([dcmread(str(f)).pixel_array for f in files])
+    if out.shape != vol.shape or out.dtype != np.uint16:
+        fail(f"masked CLI output {out.dtype} {out.shape}")
+    eng = DualGeneratorEngine(load_torch_state_dict(str(st_path)), lung,
+                              img_size=SIZE, device=dev)
+    if (eng.st_channels, eng.lung_channels) != (3, 2):
+        fail(f"phase 8 checkpoints have {eng.st_channels}, "
+             f"{eng.lung_channels} input channels, expected 3 and 2")
+    masks = eng._host_masks(vol, 1.0, -1024.0)
+    want = eng.run_patient(vol.astype(np.uint16), 1.0, -1024.0, chunk=N)
+    if want.dtype != np.int16 or not np.isfinite(want).all():
+        fail(f"masked run_patient output {want.dtype}")
+    if not np.array_equal(out, want.astype(np.uint16)):
+        d = np.abs(out.astype(np.int32) - want.astype(np.int32))
+        fail(f"masked CLI series differs from run_patient: max |d| "
+             f"{int(d.max())}, equal on {float(np.mean(d == 0)):.6f}")
+    log(f"CLI, trained 3-channel SOFT_TISSUE + seeded 2-channel LUNG: "
+        f"{SLICES} slices written, read back and equal to run_patient, in "
+        f"{secs:.2f} s (incl. engine build and host masks); launches K1 "
+        f"{got[0]} K2 {got[1]}; mask voxels set: "
+        + ", ".join(f"{k} {int(v.sum())}" for k, v in masks.items()))
+
+
+def kernel_records(records) -> list:
+    """One record per kernel for the result line: launches on its path,
+    max |d|, measured times, and the bound computed from the shapes."""
+    n, hw, c = N, K1_SHAPE[1], K1_SHAPE[3]
+    cf = conv_flop(n, hw, c)
+    carry = n * (hw + 2) ** 2 * c * 2.0         # padded bf16 trunk tensor
+    inner = n * hw * hw * c * 2.0
+    wts = 9 * c * c                              # one 3x3 kernel's elements
+    d1 = float(np.prod(K2_CASES[0][1]))          # down1 elements
+    k2_launches = records["launches"]["instance_norm"]
+    tn = TRAIN_N
+    t_in, t_pad = tn * hw * hw * c, tn * (hw + 2) ** 2 * c
+    pm, pk, pn = PROBE_SHAPE
+    train = records["train_launches"]
+    quant = records[("launches", "trunk")]
+    mega = records[("launches", "mega", "bf16")]
+    proto = records[("proto", "launches")]
+    cf8, carry8 = conv_flop(8, hw, c), 8 * (hw + 2) ** 2 * c * 2.0
+    csrc = "ducosy_tpu_torch/csrc/"
+    pallas = "ducosy_tpu/ops/pallas/"
+    rows = [
+        ("residual_chain", "residual_chain.cu", pallas + "conv_in.py:399",
+         records["launches"]["residual_chain"],
+         records[("k1", 3, 1, "bfloat16")],
+         bound(2 * carry + 3 * 2 * wts * 2, bf16=6 * cf), None),
+        ("instance_norm", "instance_norm.cu", pallas + "instance_norm.py:206",
+         k2_launches, records[("k2", "down2", "bfloat16")],
+         bound(inner + carry, fp32=8 * inner / 2), None),
+        ("instance_norm_bwd", "instance_norm_bwd.cu",
+         pallas + "instance_norm.py:297", train["instance_norm_bwd"],
+         records[("k3", "bfloat16")],
+         bound((2 * t_in + t_pad) * 2, fp32=16 * t_in), None),
+        ("block_tail", "block_tail.cu", pallas + "cbam_block.py:108",
+         train["block_tail"], records[("k4", 1, "bfloat16")],
+         bound((t_in + 2 * t_pad) * 2, fp32=12 * t_in + 196 * tn * hw * hw),
+         None),
+        ("block_tail_bwd", "block_tail_bwd.cu", pallas + "cbam_block.py:272",
+         train["block_tail_bwd"], records[("k5", 1, "bfloat16")],
+         bound((2 * t_in + 2 * t_pad) * 2, fp32=30 * t_in), None),
+        ("residual_chain (K1q, quant=True)", "residual_chain.cu",
+         pallas + "conv_in.py:399", quant["residual_chain"],
+         records[("k1q", 3, 1, "bfloat16")],
+         bound(2 * carry + 3 * wts * 3, bf16=3 * cf, int8=3 * cf), None),
+        ("instance_norm (K2 int8 write)", "instance_norm.cu",
+         pallas + "instance_norm.py:206",
+         records[("launches", "tail")]["instance_norm_int8"],
+         records["k2_int8"], bound(inner + carry / 2, fp32=10 * inner / 2),
+         None),
+        ("instance_norm (K2 phases=4)", "instance_norm.cu",
+         pallas + "instance_norm.py:206", 0, records[("k2p", "bfloat16")],
+         bound(4 * inner, fp32=8 * inner), None),
+        ("tap_probe (P3, int8, 9 taps)", "tap_probe.cu",
+         "scripts/probe_int8_mosaic.py:38", records["p3_launches"],
+         records[("p3", "int8", 9)],
+         bound(pm * pk + pk * pn + 4 * pm * pn, int8=2.0 * pm * pk * pn * 9),
+         records[("p3", "int8", 9)]["library_ms"]),
+        ("conv3x3_in (K7)", "conv_in.cu", pallas + "conv_in.py:119",
+         mega["conv3x3_in"], records[("k7", "bfloat16")],
+         bound(2 * carry + wts * 2, bf16=cf), None),
+        ("conv_block_tail (K8)", "conv_in.cu", pallas + "conv_in.py:231",
+         mega["conv_block_tail"], records[("k8", False, 1, "bfloat16")],
+         bound(3 * carry + wts * 2, bf16=cf), None),
+        ("proto conv3x3_in (P1, n=8)", "conv_in.cu",
+         "scripts/proto_conv_in.py:55", proto["conv3x3_in"],
+         records[("p1", 8, "bfloat16")],
+         bound(2 * carry8 + wts * 2, bf16=cf8), None),
+        ("proto conv_block_tail (P2, n=8)", "conv_in.cu",
+         "scripts/proto_conv_in.py:156", proto["conv_block_tail"],
+         records[("p2", 8, "bfloat16")],
+         bound(3 * carry8 + wts * 2, bf16=cf8), None),
+        # the same wrapper and count as "instance_norm" above (the serving
+        # path calls it once at each shape per generator call), at the shape
+        # that one library call computes too
+        ("instance_norm (K2 at down1, pad 0)", "instance_norm.cu",
+         pallas + "instance_norm.py:206", k2_launches,
+         records[("k2", "down1", "bfloat16")],
+         bound(2 * d1 * 2, fp32=8 * d1),
+         records[("k2", "down1", "bfloat16")]["library_ms"]),
+    ]
+    return [dict(name=name, route="cuda", source=csrc + src, replaces=rep,
+                 launches=launches, **pick(rec), **bnd, library_ms=lib)
+            for name, src, rep, launches, rec, bnd, lib in rows]
+
+
+def log_other_shapes(records) -> None:
+    """Time beside bound for a call whose shape the kernels line does not
+    carry: K6 (K1 at k = 1)."""
+    n, hw, c = N, K1_SHAPE[1], K1_SHAPE[3]
+    carry = n * (hw + 2) ** 2 * c * 2.0
+    rec = records[("k1", 1, 1, "bfloat16")]
+    bnd = bound(2 * carry + 2 * 9 * c * c * 2, bf16=2 * conv_flop(n, hw, c))
+    log(f"K6 (K1 k=1, pad 1) bf16: kernel {rec['ms']:.4f} ms, plain "
+        f"{rec['plain_ms']:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+        f"({bnd['bound_by']}), max|d| {rec['max_abs_err']:.3e}")
+
+
+SOURCES = ("instance_norm", "residual_chain", "conv_in", "instance_norm_bwd",
+           "block_tail", "block_tail_bwd", "tap_probe")
+
 
 def main() -> None:
     import torch
@@ -924,18 +1499,19 @@ def main() -> None:
     log(f"torch {torch.__version__} CUDA {torch.version.cuda} python "
         f"{sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
 
+    from ducosy_tpu_torch.models.convert import init_generator_state_dict
     from ducosy_tpu_torch.ops.kernels import _build
     from ducosy_tpu_torch.ops.kernels import block_tail as k4
+    from ducosy_tpu_torch.ops.kernels import conv_in as k7
     from ducosy_tpu_torch.ops.kernels import instance_norm as k2
+    from ducosy_tpu_torch.ops.kernels import proto_conv_in as proto
     from ducosy_tpu_torch.ops.kernels import residual_chain as k1
     from ducosy_tpu_torch.ops.kernels import tap_probe
 
-    sources = ("instance_norm", "residual_chain", "instance_norm_bwd",
-               "block_tail", "block_tail_bwd", "tap_probe")
     t0 = time.perf_counter()
-    _build.build_all(sources)          # one nvcc per source, all at once
-    log(f"built {len(sources)} sources in {time.perf_counter() - t0:.2f} s")
-    for name in sources:
+    _build.build_all(SOURCES)          # one nvcc per source, all at once
+    log(f"built {len(SOURCES)} sources in {time.perf_counter() - t0:.2f} s")
+    for name in SOURCES:
         _build.load_library(name)
         log(f"  {name}.cu -> {_build.library_path(name).name}")
         for line in _build.build_log(name).splitlines():
@@ -944,69 +1520,36 @@ def main() -> None:
                 log(f"  nvcc: {line.strip()}")
 
     records: dict = {}
-    check_instance_norm(k2, dev, records)
-    check_residual_chain(k1, dev, records)
-    check_k1q(k1, dev, records)
-    check_k2p(k2, dev, records)
-    check_tap_probe(tap_probe, dev, records)
-    st, lung = run_engine_phase(k1, k2, dev, records)
-    run_quant_engine_phase(k1, k2, k4, dev, st, lung, records)
-    run_cli_phase(k1, k2, st, lung)
-    run_cli_phase(k1, k2, st, lung, flags=("--quant", "trunk"))
-    check_training_kernels(k2, k4, dev, records)
-    run_training_phase(k2, k4, records)
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        fail("JAX was imported")
+    st = init_generator_state_dict(SEED + 10)
+    lung = init_generator_state_dict(SEED + 11)
 
-    train = records["train_launches"]
-    kernels = [
-        dict(name="residual_chain", route="cuda",
-             source="ducosy_tpu_torch/csrc/residual_chain.cu",
-             replaces="ducosy_tpu/ops/pallas/conv_in.py:399",
-             launches=records["launches"]["residual_chain"],
-             **records[("k1", 3, 1, "bfloat16")]),
-        dict(name="instance_norm", route="cuda",
-             source="ducosy_tpu_torch/csrc/instance_norm.cu",
-             replaces="ducosy_tpu/ops/pallas/instance_norm.py:206",
-             launches=records["launches"]["instance_norm"],
-             **records[("k2", "down2", "bfloat16")]),
-        dict(name="instance_norm_bwd", route="cuda",
-             source="ducosy_tpu_torch/csrc/instance_norm_bwd.cu",
-             replaces="ducosy_tpu/ops/pallas/instance_norm.py:297",
-             launches=train["instance_norm_bwd"],
-             **records[("k3", "bfloat16")]),
-        dict(name="block_tail", route="cuda",
-             source="ducosy_tpu_torch/csrc/block_tail.cu",
-             replaces="ducosy_tpu/ops/pallas/cbam_block.py:108",
-             launches=train["block_tail"], **records[("k4", 1, "bfloat16")]),
-        dict(name="block_tail_bwd", route="cuda",
-             source="ducosy_tpu_torch/csrc/block_tail_bwd.cu",
-             replaces="ducosy_tpu/ops/pallas/cbam_block.py:272",
-             launches=train["block_tail_bwd"],
-             **records[("k5", 1, "bfloat16")]),
-    ]
-    quant = records[("launches", "trunk")]
-    kernels += [
-        dict(name="residual_chain (K1q, quant=True)", route="cuda",
-             source="ducosy_tpu_torch/csrc/residual_chain.cu",
-             replaces="ducosy_tpu/ops/pallas/conv_in.py:399",
-             launches=quant["residual_chain"],
-             **pick(records[("k1q", 3, 1, "bfloat16")])),
-        dict(name="instance_norm (K2 int8 write)", route="cuda",
-             source="ducosy_tpu_torch/csrc/instance_norm.cu",
-             replaces="ducosy_tpu/ops/pallas/instance_norm.py:206",
-             launches=records[("launches", "tail")]["instance_norm_int8"],
-             **pick(records["k2_int8"])),
-        dict(name="instance_norm (K2 phases=4)", route="cuda",
-             source="ducosy_tpu_torch/csrc/instance_norm.cu",
-             replaces="ducosy_tpu/ops/pallas/instance_norm.py:206",
-             launches=0, **pick(records[("k2p", "bfloat16")])),
-        dict(name="tap_probe (P3, int8, 9 taps)", route="cuda",
-             source="ducosy_tpu_torch/csrc/tap_probe.cu",
-             replaces="scripts/probe_int8_mosaic.py:38",
-             launches=0, **pick(records[("p3", "int8", 9)])),
-    ]
-    log(json.dumps({"kernels": kernels}))
+    def phase(name, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        fn(*args, **kwargs)
+        log(f"phase {name} done in {time.perf_counter() - t0:.1f} s")
+
+    phase("2", check_instance_norm, k2, dev, records)
+    phase("3", check_residual_chain, k1, dev, records)
+    phase("3q K1q", check_k1q, k1, dev, records)
+    phase("3q K2p", check_k2p, k2, dev, records)
+    phase("3q P3", check_tap_probe, tap_probe, dev, records)
+    phase("3m", check_conv_in, k7, dev, records)
+    phase("3p", run_proto_phase, proto, k7, dev, records)
+    phase("4", run_engine_phase, k1, k2, dev, st, lung, records)
+    phase("4q", run_quant_engine_phase, k1, k2, k4, dev, st, lung, records)
+    phase("4m", run_mega_engine_phase, k1, k2, k7, dev, st, lung, records)
+    phase("5", run_cli_phase, k1, k2, st, lung)
+    phase("5q", run_cli_phase, k1, k2, st, lung, flags=("--quant", "trunk"))
+    phase("6", check_training_kernels, k2, k4, dev, records)
+    with tempfile.TemporaryDirectory() as run_dir:
+        phase("7", run_training_phase, k2, k4, Path(run_dir), records)
+        phase("8", run_masked_cli_phase, k1, k2, dev, Path(run_dir))
+    if any(m.split(".")[0] in ("jax", "flax", "optax", "ducosy_tpu")
+           for m in sys.modules):
+        fail("JAX or the JAX package was imported")
+
+    log_other_shapes(records)
+    log(json.dumps({"kernels": kernel_records(records)}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,21 +8,26 @@ bound with ctypes.
 
 Layout (module names follow the JAX package so each counterpart is easy to
 find):
+  config.py        the typed configuration (ranges, model, train, losses)
   device.py        CUDA device resolution, no silent CPU fallback
-  ops/             HU transforms, filters, antialiased resize
+  dicom/           the DICOM codec (uncompressed, RLE and JPEG Lossless)
+                   and the native parser, built at first use
+  masks/           the HU-threshold anatomical masks (host numpy/scipy)
+  ops/             HU transforms, filters, antialiased resize, int8 grids
   ops/kernels/     kernel wrappers, their plain PyTorch versions and the
                    autograd Functions of the training kernels
   models/          Generator (ResNet-9 + CBAM), PatchGAN discriminator,
                    checkpoint conversion
   losses/          the CycleGAN loss suite
-  data/            the slice dataset with the port's resize
+  data/            patient pairing, the slice dataset, the host loader
   train/           state, step, loop and checkpoints on one card
   infer/           dual-generator engine and volume postprocess
+  utils/           validation image grids and the metrics logger
   cli/             the serving (generate.py) and training (train.py) CLIs
 
-Nothing here imports JAX. From ``ducosy_tpu`` only JAX-free host code is
-used: ``config``, ``dicom``, ``masks``, ``data`` (pairing, the loader and
-the dataset's host helpers) and ``utils.{imaging,logging}``.
+Nothing here imports JAX or ``ducosy_tpu``: the host modules (config,
+dicom, masks, data, utils) are the port's own copies, so the package runs
+with the JAX package off the path.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

@@ -10,9 +10,12 @@ series runs through ``DualGeneratorEngine.run_patient`` and the final
 sCECT series is written. Patient N+1's DICOM decode runs in an io thread
 while patient N computes on the card, and patient N's download and write
 follow N+1's launch. ``--quant trunk|full`` (or ``--trunk_int8``, the same
-as ``--quant trunk``) serves the quantized modes. ``--write_working``,
-``--synthesis_mode additive``, ``--num_devices`` > 1 and ``--soft_squeeze``
-are not ported yet and raise.
+as ``--quant trunk``) serves the quantized modes. Mask-conditioned
+checkpoints (what ``cli.train`` writes for SOFT_TISSUE and LUNG) are served
+with their masks generated on the host, the next patient's prefetched while
+this one computes; ``--soft_squeeze`` gives them the training-time input
+squeeze. ``--write_working``, ``--synthesis_mode additive`` and
+``--num_devices`` > 1 are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -63,8 +66,10 @@ def parse_args(argv=None):
                         "grids (larger deviation; validate on your "
                         "checkpoints)")
     p.add_argument("--soft_squeeze", action="store_true",
-                   help="training-time input squeeze for mask-conditioned "
-                        "framework checkpoints (not ported yet)")
+                   help="normalize model inputs with the training-time "
+                        "soft squeeze instead of the linear serving window: "
+                        "for checkpoints trained with use_soft_squeezing "
+                        "(the released ones are served linearly)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch path)")
@@ -76,7 +81,6 @@ def _refuse_unported(args) -> None:
         "--write_working": args.write_working,
         "--synthesis_mode additive": args.synthesis_mode != "overwrite",
         "--num_devices": (args.num_devices or 1) > 1,
-        "--soft_squeeze": args.soft_squeeze,
     }
     for flag, given in unported.items():
         if given:
@@ -113,14 +117,15 @@ def load_engine(args):
                                _load_generator(args.lung_model),
                                img_size=args.img_size, compute_dtype=dtype,
                                device=args.device, quant=args.quant,
-                               trunk_int8=args.trunk_int8)
+                               trunk_int8=args.trunk_int8,
+                               soft_squeeze=args.soft_squeeze)
 
 
 def _read_series(folder):
     """Sorted, readable slices of a series; an unreadable slice is skipped
     with a warning, as the reference does (generate.py:128-132)."""
-    from ducosy_tpu.data.pairing import sort_dicom_files
-    from ducosy_tpu.dicom import dcmread
+    from ducosy_tpu_torch.data.pairing import sort_dicom_files
+    from ducosy_tpu_torch.dicom import dcmread
 
     files = sort_dicom_files(glob.glob(os.path.join(folder, "*.dcm")))
     kept, datasets, shape = [], [], None
@@ -144,7 +149,7 @@ def _final_tags(out_ds, merged, series_description=SERIES_DESCRIPTION):
     written uncompressed, so the transfer syntax is reset to Explicit VR
     LE: a dataset read from a compressed series would otherwise keep its
     encapsulated syntax and be written as raw bytes under it."""
-    from ducosy_tpu.dicom.codec import EXPLICIT_VR_LE
+    from ducosy_tpu_torch.dicom.codec import EXPLICIT_VR_LE
 
     out_ds.transfer_syntax_uid = EXPLICIT_VR_LE
     out_ds.PixelData = np.ascontiguousarray(merged).tobytes()
@@ -184,24 +189,33 @@ def _finish(patient_dir, datasets, dtype, out_patient, device_out) -> int:
 
 
 def run_fast_pipeline(engine, args, patients, output_dir) -> int:
-    """Patients in order; the next two patients' DICOM decode runs in io
-    threads while the card works, and patient N's result is downloaded and
-    written after patient N+1 has been launched."""
+    """Patients in order; the next two patients' DICOM decode (and, for
+    mask-conditioned checkpoints, the start of their mask generation) runs
+    in io threads while the card works, and patient N's result is
+    downloaded and written after patient N+1 has been launched."""
+    def load_and_prefetch(p):
+        data = _load_patient(args, p)
+        if data is None:
+            return None
+        _, volume, slope, intercept = data
+        return (*data, engine.prefetch_masks(volume, slope, intercept))
+
     done = 0
     with ThreadPoolExecutor(2, thread_name_prefix="io") as io_pool:
-        loads = {p: io_pool.submit(_load_patient, args, p)
+        loads = {p: io_pool.submit(load_and_prefetch, p)
                  for p in patients[:2]}
         inflight = []  # _finish arguments of launched, unwritten patients
         for i, pdir in enumerate(patients):
             if i + 2 < len(patients):
                 nxt = patients[i + 2]
-                loads[nxt] = io_pool.submit(_load_patient, args, nxt)
+                loads[nxt] = io_pool.submit(load_and_prefetch, nxt)
             data = loads.pop(pdir).result()
             if data is None:
                 continue
-            datasets, volume, slope, intercept = data
+            datasets, volume, slope, intercept, mask_fut = data
             out = engine.run_patient_async(volume, slope, intercept,
-                                           chunk=args.slice_batch)
+                                           chunk=args.slice_batch,
+                                           masks=mask_fut)
             out_patient = os.path.join(output_dir, os.path.basename(pdir))
             os.makedirs(out_patient, exist_ok=True)
             inflight.append((pdir, datasets, volume.dtype, out_patient, out))

@@ -65,7 +65,7 @@ def main(argv=None):
         raise NotImplementedError(
             f"--num_devices {args.num_devices}: multi-card training is not "
             "ported yet (one card)")
-    from ducosy_tpu.config import ModelConfig, TrainConfig, replace
+    from ducosy_tpu_torch.config import ModelConfig, TrainConfig, replace
     from ducosy_tpu_torch.device import require_cuda
     from ducosy_tpu_torch.train.loop import train_cycle_gan
 

@@ -1,5 +1,5 @@
-// Shared device code of the port's InstanceNorm-bearing kernels (K1-K5)
-// and the int8 tap probe (P3).
+// Shared device code of the port's InstanceNorm-bearing kernels (K1-K5,
+// K7, K8) and the int8 tap probe (P3).
 //
 // Whole-image reductions are split into per-tile partials and an apply
 // step: a tile of TILE_M pixels x TILE_N channels reports its per-channel
@@ -32,6 +32,11 @@ template <> __device__ __forceinline__ float from_f32<float>(float v) {
 }
 template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
   return __float2bfloat16(v);   // round to nearest even
+}
+// A value cast, toward zero and saturating: what K7 writes for an int8
+// input without an int8 scale (the TPU kernel's astype, conv_in.py:111).
+template <> __device__ __forceinline__ int8_t from_f32<int8_t>(float v) {
+  return static_cast<int8_t>(fminf(fmaxf(truncf(v), -128.f), 127.f));
 }
 
 // Round an fp32 value to the io type and back: the reference casts its

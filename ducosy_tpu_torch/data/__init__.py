@@ -1,1 +1,2 @@
-"""Training data: the JAX package's slice dataset with the port's resize."""
+"""Training data: patient pairing, the slice-pair dataset (with the port's
+resize) and the threaded host loader."""

@@ -1,18 +1,30 @@
-"""Dual-generator serving engine (ducosy_tpu/infer/engine.py:41-312, 379-560).
+"""Dual-generator serving engine (ducosy_tpu/infer/engine.py:41-560).
 
 Runs the soft-tissue and lung generators over a patient's stored-pixel
 volume on one CUDA card, step for step like the JAX engine's
 ``run_patient``:
   1. pad z to a multiple of ``chunk`` by repeating the last slice;
-  2. per chunk: stored -> HU -> each window's [-1, 1] normalization ->
-     (resize to img_size) -> both generators -> (resize back) -> decode to
-     stored floats, no rounding;
+  2. per chunk: stored -> HU -> each window's [-1, 1] normalization (the
+     training-time soft squeeze with ``soft_squeeze``) -> (resize to
+     img_size) -> (+ the model's mask channels) -> both generators ->
+     (resize back) -> linear decode to stored floats, no rounding;
   3. composite: soft tissue overwrites the raw value inside its window,
      then lung overwrites inside its own (lung wins the shared -150 HU);
   4. z-gaussian (sigma 0.8) over the merged volume;
   5. gaussian3d + unsharp, restore stored values >= 750, int16.
 The JAX engine fuses the chunks into one jitted ``lax.map``; here a Python
 loop enqueues each chunk's kernels on the current CUDA stream.
+
+Mask-conditioned checkpoints (stem input channels > 1: image + the range's
+anatomical masks, what the training CLI writes for SOFT_TISSUE and LUNG)
+get their mask channels from the raw HU on the host (``masks/anatomy.py``,
+threaded over z), resized with nearest to the model resolution and uploaded
+as int8; ``prefetch_masks`` starts that in a background thread so the next
+patient's masks overlap this patient's device work. One model may be
+mask-conditioned and the other not.
+
+``trunk`` picks the generator's trunk: "chain" (K1, the default), "mega"
+(K7 + K8 per block), "tail" (the training trunk) or "plain".
 
 bf16 is the serving default; fp32 is the parity mode and switches cuDNN
 and matmul TF32 off (process-wide) so fp32 means fp32.
@@ -26,14 +38,18 @@ int8 weights quantized once from the state dict's fp32 values.
 """
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
-from ducosy_tpu.config import LUNG, SOFT_TISSUE, RangeConfig
+from ducosy_tpu_torch.config import LUNG, SOFT_TISSUE, RangeConfig
+from ducosy_tpu_torch.data.dataset import resize_nearest
 from ducosy_tpu_torch.device import require_cuda
 from ducosy_tpu_torch.infer.postprocess import postprocess_volume
+from ducosy_tpu_torch.masks import generate_anatomical_masks
 from ducosy_tpu_torch.models.convert import load_torch_state_dict
 from ducosy_tpu_torch.models.generator import Generator
 from ducosy_tpu_torch.ops import hu
@@ -43,7 +59,8 @@ from ducosy_tpu_torch.ops.resize import resize_hw
 
 
 class DualGeneratorEngine:
-    """Soft-tissue + lung generators for 1-channel (released) checkpoints.
+    """Soft-tissue + lung generators, released 1-channel checkpoints or
+    mask-conditioned ones.
 
     ``st_sd``/``lung_sd`` are generator state dicts in the reference key
     layout (tensors or numpy arrays), e.g. ``load_torch_state_dict`` or
@@ -55,7 +72,8 @@ class DualGeneratorEngine:
                  compute_dtype: torch.dtype = torch.bfloat16,
                  device: str | torch.device = "cuda", trunk: str = "chain",
                  forward: str = "module", quant: str | None = None,
-                 trunk_int8: bool = False, mesh=None):
+                 trunk_int8: bool = False, soft_squeeze: bool = False,
+                 mesh=None):
         self.device = require_cuda(device)
         if forward != "module":
             raise NotImplementedError(
@@ -74,13 +92,22 @@ class DualGeneratorEngine:
         if compute_dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"compute_dtype {compute_dtype}: bfloat16 or "
                              "float32")
-        in_ch = [int(np.shape(sd["model.1.weight"])[1])
-                 for sd in (st_sd, lung_sd)]
-        if max(in_ch) > 1:
-            raise NotImplementedError(
-                f"mask-conditioned checkpoints (stem input channels {in_ch}) "
-                "are not ported (ROADMAP.md Queue 1, item 3: masks and resize "
-                "in the mask path)")
+        # channel counts come from the checkpoints: 1 (released), or image
+        # + the range's mask channels (what the training CLI writes)
+        self.st_channels, self.lung_channels = (
+            int(np.shape(sd["model.1.weight"])[1]) for sd in (st_sd, lung_sd))
+        self.use_masks = max(self.st_channels, self.lung_channels) > 1
+        for name, ch, rng in (("soft-tissue", self.st_channels, st_range),
+                              ("lung", self.lung_channels, lung_range)):
+            if ch > 1 and ch != 1 + len(rng.mask_types):
+                raise ValueError(
+                    f"{name} checkpoint has {ch} input channels; its range "
+                    f"gives 1 + {len(rng.mask_types)} masks {rng.mask_types}")
+        # inputs through the training dataset's squeeze for ranges trained
+        # with it; the output decode stays linear either way, as the
+        # reference's serving path (ducosy_tpu/infer/engine.py:97-106)
+        self.soft_squeeze = soft_squeeze
+        self._mask_pool = None
         if compute_dtype == torch.float32 and self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -103,18 +130,33 @@ class DualGeneratorEngine:
                    load_torch_state_dict(lung_path), **kw)
 
     # ---------------------------------------------------------------- core
+    def _normalize(self, hu_img: torch.Tensor, rng: RangeConfig):
+        if self.soft_squeeze and rng.use_soft_squeezing:
+            # the squeeze expects window-clipped HU, as the dataset gives it
+            clipped = torch.clamp(hu_img, rng.hu_min, rng.hu_max)
+            return hu.soft_squeeze(clipped, rng.hu_min, rng.hu_max)
+        return hu.normalize_window(hu_img, rng.hu_min, rng.hu_max)
+
     def _forward_impl(self, stored: torch.Tensor, slope: float,
-                      intercept: float, out_h: int, out_w: int):
-        """(B, H, W) fp32 stored pixels on the device -> dict of stored-float
-        outputs and the raw HU, all on the device."""
+                      intercept: float, out_h: int, out_w: int, masks=None):
+        """(B, H, W) fp32 stored pixels on the device (+ per-model
+        (B, s, s, M) mask channels at model resolution) -> dict of
+        stored-float outputs and the raw HU, all on the device."""
         hu_img = hu.stored_to_hu(stored, slope, intercept)
-        x = torch.stack([
-            hu.normalize_window(hu_img, r.hu_min, r.hu_max)
-            for r in (self.st_range, self.lung_range)])
+        x = torch.stack([self._normalize(hu_img, r)
+                         for r in (self.st_range, self.lung_range)])
         if x.shape[-2:] != (self.img_size, self.img_size):
             x = resize_hw(x, self.img_size, self.img_size)
-        y = torch.stack([self.st_generator(x[0][..., None])[..., 0],
-                         self.lung_generator(x[1][..., None])[..., 0]])
+        st_x, lung_x = x[0][..., None], x[1][..., None]
+        # image first, then the model's masks; a model without masks has no
+        # entry (one may be mask-conditioned and the other not)
+        if self.st_channels > 1:
+            st_x = torch.cat([st_x, masks["st"].to(st_x.dtype)], dim=-1)
+        if self.lung_channels > 1:
+            lung_x = torch.cat([lung_x, masks["lung"].to(lung_x.dtype)],
+                               dim=-1)
+        y = torch.stack([self.st_generator(st_x)[..., 0],
+                         self.lung_generator(lung_x)[..., 0]])
         if y.shape[-2:] != (out_h, out_w):
             y = resize_hw(y, out_h, out_w)
         st_hu = hu.denormalize_to_hu(y[0], self.st_range.hu_min,
@@ -135,6 +177,84 @@ class DualGeneratorEngine:
         merged = torch.where(st_mask, st_stored, raw_stored)
         return torch.where(lung_mask, lung_stored, merged)
 
+    @staticmethod
+    def _masks_threaded(hu_vol: np.ndarray, mask_types,
+                        n_workers: int | None = None) -> Dict[str, np.ndarray]:
+        """``generate_anatomical_masks`` over z spans in parallel threads.
+        Every detector works slice by slice, so splitting z is exact; scipy
+        and numpy release the GIL in the hot loops. One serial call on a
+        one-core host or a short volume."""
+        if n_workers is None:
+            n_workers = min(8, os.cpu_count() or 1)
+        z = hu_vol.shape[0] if hu_vol.ndim == 3 else 1
+        if n_workers <= 1 or z < 2 * n_workers:
+            return generate_anatomical_masks(hu_vol, mask_types)
+        bounds = np.linspace(0, z, n_workers + 1, dtype=int)
+        spans = [(a, b) for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
+        with ThreadPoolExecutor(max_workers=len(spans)) as pool:
+            parts = list(pool.map(
+                lambda ab: generate_anatomical_masks(
+                    hu_vol[ab[0]:ab[1]], mask_types), spans))
+        return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+    def _host_masks(self, stored: np.ndarray, slope: float,
+                    intercept: float) -> Dict[str, np.ndarray]:
+        """The conditioning mask channels from the raw NCCT HU, on the host:
+        per mask-conditioned model ("st", "lung") a float32 (Z, s, s, M)
+        array of {0, 1} at model resolution (nearest resize), channels in
+        the range's ``mask_types`` order."""
+        hu_vol = np.asarray(stored, np.float32) * slope + intercept
+        ranges = {k: r for k, ch, r in (
+            ("st", self.st_channels, self.st_range),
+            ("lung", self.lung_channels, self.lung_range)) if ch > 1}
+        needed = sorted({t for r in ranges.values() for t in r.mask_types})
+        masks = self._masks_threaded(hu_vol, needed) if needed else {}
+
+        def pack(mask_types):
+            chans = []
+            for name in mask_types:
+                m = masks.get(name)
+                if m is None:
+                    m = np.zeros(hu_vol.shape, np.uint8)
+                if m.ndim == 2:
+                    m = m[None]
+                chans.append(np.stack([
+                    resize_nearest(s.astype(np.float32), self.img_size)
+                    for s in m]))
+            return np.stack(chans, axis=-1).astype(np.float32)
+
+        return {k: pack(r.mask_types) for k, r in ranges.items()}
+
+    def prefetch_masks(self, stored_volume: np.ndarray, slope: float,
+                       intercept: float):
+        """Start computing a patient's masks in a background thread; pass
+        the returned future to ``run_patient_async(masks=...)`` so patient
+        N+1's masks overlap patient N's device work. None for engines
+        without mask-conditioned checkpoints."""
+        if not self.use_masks:
+            return None
+        if self._mask_pool is None:
+            self._mask_pool = ThreadPoolExecutor(
+                max_workers=2, thread_name_prefix="mask-prefetch")
+        vol = np.ascontiguousarray(stored_volume)
+        return self._mask_pool.submit(self._host_masks, vol, slope, intercept)
+
+    def _upload_masks(self, masks, stored_volume, slope, intercept, pad: int):
+        """A ``prefetch_masks`` future, its result, or None (computed here)
+        -> per-model int8 device tensors, z padded by copies of the last
+        slice's mask."""
+        if not self.use_masks:
+            return None
+        if masks is None:
+            masks = self._host_masks(stored_volume, slope, intercept)
+        elif hasattr(masks, "result"):
+            masks = masks.result()
+        if pad:
+            masks = {k: np.concatenate([v, v[-1:].repeat(pad, axis=0)])
+                     for k, v in masks.items()}
+        return {k: torch.from_numpy(np.asarray(v).astype(np.int8))
+                .to(self.device) for k, v in masks.items()}
+
     def _upload(self, stored: np.ndarray) -> torch.Tensor:
         """Host stored pixels -> device tensor in a narrow integer dtype
         (uint16 widens to int32 on the host: torch has no uint16 math)."""
@@ -148,10 +268,12 @@ class DualGeneratorEngine:
         """A (B, H, W) batch through both models: float32 stored-pixel
         outputs and the raw HU, as numpy, at the input's size."""
         out_h, out_w = stored.shape[-2:]
+        slope, intercept = float(slope), float(intercept)
         with torch.inference_mode():
+            masks = self._upload_masks(None, stored, slope, intercept, 0)
             sl = self._upload(stored).to(torch.float32)
-            out = self._forward_impl(sl, float(slope), float(intercept),
-                                     out_h, out_w)
+            out = self._forward_impl(sl, slope, intercept, out_h, out_w,
+                                     masks)
             return {k: v.cpu().numpy() for k, v in out.items()}
 
     # ------------------------------------------------- full-patient pipeline
@@ -166,9 +288,13 @@ class DualGeneratorEngine:
                           intercept: float, *, chunk: int = 32,
                           pre_z_sigma: float = 0.8, sigma_z: float = 0.7,
                           sigma_xy: float = 0.05, sharpen_amount: float = 1.7,
-                          sharpen_radius: float = 1.2) -> torch.Tensor:
+                          sharpen_radius: float = 1.2,
+                          masks=None) -> torch.Tensor:
         """Like run_patient, but returns the int16 volume as a device tensor
-        without waiting for the card, so a caller can overlap host work."""
+        without waiting for the card, so a caller can overlap host work.
+        ``masks`` may be a ``prefetch_masks`` future (or its result) of the
+        same unpadded volume; without it a mask-conditioned engine computes
+        the masks here."""
         z, h, w = stored_volume.shape
         pad = (-z) % chunk
         stored = np.concatenate(
@@ -176,12 +302,15 @@ class DualGeneratorEngine:
         ) if pad else stored_volume
         slope, intercept = float(slope), float(intercept)
         with torch.inference_mode():
+            masks = self._upload_masks(masks, stored_volume, slope, intercept,
+                                       pad)
             vol = self._upload(stored)
             merged = torch.empty((z + pad, h, w), dtype=torch.float32,
                                  device=self.device)
             for lo in range(0, z + pad, chunk):
                 sl = vol[lo:lo + chunk].to(torch.float32)
-                out = self._forward_impl(sl, slope, intercept, h, w)
+                mk = masks and {k: v[lo:lo + chunk] for k, v in masks.items()}
+                out = self._forward_impl(sl, slope, intercept, h, w, mk)
                 merged[lo:lo + chunk] = self._composite(
                     sl, out["raw_hu"], out["st_stored"], out["lung_stored"])
             merged = gaussian_filter_1d(merged[:z], pre_z_sigma, axis=0)

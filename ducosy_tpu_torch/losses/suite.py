@@ -11,7 +11,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-from ducosy_tpu.config import LossConfig, TrainConfig
+from ducosy_tpu_torch.config import LossConfig, TrainConfig
 from ducosy_tpu_torch.losses import basic, contrast
 from ducosy_tpu_torch.losses import ssim as ssim_mod
 

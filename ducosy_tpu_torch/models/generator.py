@@ -15,6 +15,12 @@ two TPU-kernel sites to the hand-written kernels:
                  "chain3" placement (models/fused.py:603-639,
                  infer/engine.py:200-206). Stem, up1, up2 and head stay
                  plain convs and norms, as the JAX package left them to XLA.
+  trunk="mega"   the encoder norms as under "chain"; each residual block is
+                 two kernels, K7 (conv1 + IN + ReLU + pad 1) then K8 (conv2 +
+                 IN + CBAM + skip + pad 1, pad 0 on the last block), with one
+                 scratch for the whole trunk: the JAX packed forward's
+                 trunk="mega" (models/fused.py:616-623, :654-669). Serving
+                 only, as "chain".
   trunk="tail"   the training trunk, the JAX trunk="pallas" placement with
                  encoder_fused off (models/fused.py:615-623, :688-698):
                  down2's norm is plain with a standalone reflect pad; each
@@ -29,7 +35,8 @@ two TPU-kernel sites to the hand-written kernels:
 JAX packed forward's ``quant`` modes (models/fused.py:510-519) without its
 space-to-depth packing:
   "trunk"  each block's conv2 runs int8 x int8 on its shifted-grid int8
-           input: K1q under trunk="chain" (the JAX engine's chain3); under
+           input: K1q under trunk="chain" (the JAX engine's chain3); K7's
+           int8 write and K8's int8 taps under trunk="mega"; under
            trunk="tail" conv1 (with bias), K2's int8 write (pad 1), the
            int8 conv2 (with bias, zero point 128) and K4, as the JAX
            trunk="pallas" under quant (fused.py:670-698); under
@@ -62,6 +69,7 @@ from ducosy_tpu_torch.models.layers import (
     upsample_nearest_2x,
 )
 from ducosy_tpu_torch.ops.kernels import block_tail as k4
+from ducosy_tpu_torch.ops.kernels import conv_in as k7
 from ducosy_tpu_torch.ops.kernels import instance_norm as k2
 from ducosy_tpu_torch.ops.kernels import residual_chain as k1
 from ducosy_tpu_torch.ops.quant import (
@@ -78,7 +86,7 @@ from ducosy_tpu_torch.ops.quant import (
 )
 
 CHAIN_K = 3  # residual blocks per K1 call on the serving path
-TRUNKS = ("chain", "tail", "plain")
+TRUNKS = ("chain", "mega", "tail", "plain")
 
 
 class _ChannelAttention(nn.Module):
@@ -237,6 +245,26 @@ class Generator(nn.Module):
                 pad=0 if i == r - 1 else 1, x_pad=1)
         return hp
 
+    def _trunk_mega(self, hp: torch.Tensor) -> torch.Tensor:
+        """K7 then K8 per block on the reflect-padded carry hp; under quant,
+        K7 writes int8 and K8's taps run on the build-time int8 conv2."""
+        r, quant = self.num_residual_blocks, bool(self.quant)
+        was, wbs, w1s, w2s, wsas = self._trunk_weights(0, r)[:5]
+        ws = [None] * r
+        if quant:
+            wbs, ws = self.qweights["conv2"]
+        n, hh, ww, c = hp.shape
+        scratch = k7.make_scratch(n, hh - 2, ww - 2, c, hp.device) \
+            if hp.device.type == "cuda" else None
+        for i in range(r):
+            t = k7.conv3x3_in(hp, was[i], pad=1, scratch=scratch,
+                              int8_scale=INT8_NORM_SCALE if quant else None)
+            hp = k7.conv_block_tail(t, hp, wbs[i], w1s[i], w2s[i], wsas[i],
+                                    pad=0 if i == r - 1 else 1, x_pad=1,
+                                    in_int8=quant, w_scale=ws[i],
+                                    scratch=scratch)
+        return hp
+
     def _conv8(self, name: str, x8: torch.Tensor, act_scale: float, bias,
                dt: torch.dtype, **kw) -> torch.Tensor:
         return conv_int8_static(x8, *self.qweights[name], bias, act_scale,
@@ -244,13 +272,14 @@ class Generator(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         m, r = self.model, self.num_residual_blocks
-        chain, quant = self.trunk == "chain", self.quant
+        chain, mega, quant = self.trunk == "chain", self.trunk == "mega", \
+            self.quant
         full = quant == "full"
-        if (chain or quant) and torch.is_grad_enabled() \
+        if (chain or mega or quant) and torch.is_grad_enabled() \
                 and m[1].weight.requires_grad:
-            raise RuntimeError("trunk='chain' and the quant modes have no "
-                               "backward (serving only): train with "
-                               "trunk='tail' or 'plain' and quant=None")
+            raise RuntimeError("trunk='chain', trunk='mega' and the quant "
+                               "modes have no backward (serving only): train "
+                               "with trunk='tail' or 'plain' and quant=None")
         if quant and not self.qweights:
             raise RuntimeError("quant is set but quantize_weights() was not "
                                "called (Generator.from_state_dict calls it)")
@@ -270,14 +299,17 @@ class Generator(nn.Module):
             h = conv(h, m[1])
             h = torch.relu(instance_norm(h))
             h = conv(h, m[4], stride=2, padding=1)
-            if chain:
+            if chain or mega:
                 h = k2.instance_norm(h.contiguous(), relu=True, pad=0)
             else:
                 h = torch.relu(instance_norm(h))
             h = conv(h, m[7], stride=2, padding=1)
-        if chain:
+        if chain or mega:
             # the down2 norm also writes the trunk's first reflect pad
             h = k2.instance_norm(h.contiguous(), relu=True, pad=1)
+        if mega:
+            h = self._trunk_mega(h)
+        elif chain:
             step = CHAIN_K if r >= CHAIN_K else 1
             for lo in range(0, r, step):
                 hi = min(lo + step, r)

@@ -14,9 +14,9 @@ The kernel is CUDA C++ (``csrc/residual_chain.cu``); the carry is far
 larger than a Hopper block's shared memory, so each block runs as six
 launches that split every whole-image reduction into per-tile partials and
 a later apply step (see the source note there). ``residual_chain_plain``
-is the TPU package's XLA composition (conv_in.py:501-536 with
-cbam_block.py:472, ``block_tail_plain`` of block_tail.py) in plain
-PyTorch, with optional conv biases.
+is the TPU package's XLA composition (conv_in.py:501-536) in plain
+PyTorch, with optional conv biases: per block ``conv3x3_in_plain`` then
+``conv_block_tail_plain`` of ops/kernels/conv_in.py.
 
 K1q (``quant=True``, conv_in.py:366-369, :380-386): the intermediate t is
 written int8 on the shifted grid and conv2 runs int8 x int8 -> int32. The
@@ -36,28 +36,16 @@ import functools
 
 import torch
 
-from ducosy_tpu_torch.models.layers import (
-    EPS_INSTANCE_NORM,
-    conv2d,
-    instance_norm,
-    reflect_pad,
-)
+from ducosy_tpu_torch.models.layers import EPS_INSTANCE_NORM
 from ducosy_tpu_torch.ops.kernels import _build
-from ducosy_tpu_torch.ops.kernels.block_tail import (
-    SA_KERNEL,
-    block_tail_plain,
-    hwio_to_oihw,
+from ducosy_tpu_torch.ops.kernels.block_tail import SA_KERNEL
+from ducosy_tpu_torch.ops.kernels.conv_in import (
+    TILE_M,
+    TILE_N,
+    conv3x3_in_plain,
+    conv_block_tail_plain,
 )
-from ducosy_tpu_torch.ops.quant import (
-    INT8_GRID,
-    INT8_NORM_SCALE,
-    INT8_ZERO_POINT,
-    conv_int8_static,
-    in_relu_int8,
-)
-
-TILE_M = 128   # pixels per conv output / statistics tile (csrc/common.cuh)
-TILE_N = 64    # output channels per conv tile; C must be a multiple
+from ducosy_tpu_torch.ops.quant import INT8_GRID, INT8_NORM_SCALE
 
 
 def quant_intermediate_plain(xp, wa, b1=None, *,
@@ -65,11 +53,8 @@ def quant_intermediate_plain(xp, wa, b1=None, *,
     """K1q's t of one block in plain PyTorch: conv1 (HWIO wa, io-dtype
     operands) accumulated in fp32, IN + ReLU + reflect pad 1, shifted-grid
     int8 of the fp32 value (conv_in.py:379-389)."""
-    dt = xp.dtype
-    f32 = lambda a: a.to(dt).to(torch.float32)
-    t = conv2d(xp.to(torch.float32), f32(hwio_to_oihw(wa)),
-               None if b1 is None else f32(b1))
-    return in_relu_int8(t, pad=1, eps=eps)
+    return conv3x3_in_plain(xp, wa, pad=1, int8_scale=INT8_NORM_SCALE,
+                            bias=b1, eps=eps)
 
 
 def residual_chain_plain(xp, was, wbs, w1s, w2s, wsas, *, pad: int = 1,
@@ -86,26 +71,18 @@ def residual_chain_plain(xp, was, wbs, w1s, w2s, wsas, *, pad: int = 1,
     with ``wb_scales`` (k, C) to the io dtype before the tail. At fp32 the
     two are the same computation."""
     k = was.shape[0]
-    dt = xp.dtype
     if quant and (wbs.dtype != torch.int8 or wb_scales is None):
         raise ValueError("residual_chain quant: wbs must be int8 with "
                          "wb_scales")
     for j in range(k):
-        b1 = None if b1s is None else b1s[j]
-        b2 = None if b2s is None else b2s[j]
-        if quant:
-            t8 = quant_intermediate_plain(xp, was[j], b1, eps=eps)
-            y = conv_int8_static(t8, wbs[j], wb_scales[j], b2,
-                                 INT8_NORM_SCALE, dtype=dt,
-                                 zero_point=INT8_ZERO_POINT)
-        else:
-            t = conv2d(xp, hwio_to_oihw(was[j]).to(dt),
-                       None if b1 is None else b1.to(dt))
-            t = reflect_pad(torch.relu(instance_norm(t, eps)), 1)
-            y = conv2d(t, hwio_to_oihw(wbs[j]).to(dt),
-                       None if b2 is None else b2.to(dt))
-        xp = block_tail_plain(y, xp, w1s[j], w2s[j], wsas[j],
-                              pad=pad if j == k - 1 else 1, x_pad=1, eps=eps)
+        t = conv3x3_in_plain(
+            xp, was[j], pad=1, eps=eps, bias=None if b1s is None else b1s[j],
+            int8_scale=INT8_NORM_SCALE if quant else None)
+        xp = conv_block_tail_plain(
+            t, xp, wbs[j], w1s[j], w2s[j], wsas[j],
+            pad=pad if j == k - 1 else 1, x_pad=1, in_int8=quant,
+            w_scale=wb_scales[j] if quant else None,
+            bias=None if b2s is None else b2s[j], eps=eps)
     return xp
 
 

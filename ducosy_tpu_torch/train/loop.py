@@ -22,12 +22,12 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ducosy_tpu.config import LossConfig, ModelConfig, RANGES, RangeConfig, \
-    TrainConfig
-from ducosy_tpu.data.loader import HostLoader
-from ducosy_tpu.data.pairing import list_patient_dirs, train_val_split
-from ducosy_tpu.utils.imaging import save_comparison_grid
-from ducosy_tpu.utils.logging import MetricsLogger, StepTimer
+from ducosy_tpu_torch.config import LossConfig, ModelConfig, RANGES, \
+    RangeConfig, TrainConfig
+from ducosy_tpu_torch.data.loader import HostLoader
+from ducosy_tpu_torch.data.pairing import list_patient_dirs, train_val_split
+from ducosy_tpu_torch.utils.imaging import save_comparison_grid
+from ducosy_tpu_torch.utils.logging import MetricsLogger, StepTimer
 from ducosy_tpu_torch.data.dataset import SlicePairDataset
 from ducosy_tpu_torch.device import require_cuda
 from ducosy_tpu_torch.ops.hu import apply_windowing

@@ -16,7 +16,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ducosy_tpu.config import ModelConfig, RangeConfig, TrainConfig
+from ducosy_tpu_torch.config import ModelConfig, RangeConfig, TrainConfig
 from ducosy_tpu_torch.models.convert import (
     init_discriminator_state_dict,
     init_generator_state_dict,

@@ -20,7 +20,7 @@ from typing import Dict
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ducosy_tpu.config import LossConfig, TrainConfig
+from ducosy_tpu_torch.config import LossConfig, TrainConfig
 from ducosy_tpu_torch.losses.suite import (
     discriminator_loss,
     generator_loss,

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from ducosy_tpu.config import LUNG, SOFT_TISSUE
 from ducosy_tpu.dicom import codec, dcmread
 from ducosy_tpu.infer.engine import DualGeneratorEngine as JaxEngine
 from ducosy_tpu.models.generator import Generator as JaxGenerator
@@ -68,15 +69,17 @@ def _engine(st, lung, **kw):
     return DualGeneratorEngine(st, lung, **kw)
 
 
-@pytest.mark.parametrize("blocks,in_ch", [(3, 1), (4, 1), (3, 3)],
-                         ids=["3", "4", "3-stem3ch"])
+@pytest.mark.parametrize("blocks,in_ch", [(3, 1), (4, 1), (3, 3), (3, 2)],
+                         ids=["3", "4", "3-stem3ch", "3-stem2ch"])
 @pytest.mark.parametrize("trunk", ["chain", "plain"])
 def test_generator_matches_jax(blocks, in_ch, trunk):
     """Port forward vs Generator.apply at fp32, with non-zero biases. At 3
     blocks the chain trunk is one group of 3; at 4 a group of 3 plus a
     remainder group of 1. The chain trunk drops the trunk conv biases,
-    which the following InstanceNorms cancel. The 3-channel stem is the
-    image + 2 masks input of the checkpoints the training CLI writes."""
+    which the following InstanceNorms cancel. The 3- and 2-channel stems are
+    the image + masks inputs of the SOFT_TISSUE and LUNG checkpoints the
+    training CLI writes; the state dict is cut from 9 blocks to 3 as
+    models/convert.py carries it."""
     rng = np.random.default_rng(blocks)
     sd = init_generator_state_dict(blocks, in_ch, BASE, blocks)
     for k in sd:
@@ -184,11 +187,15 @@ def test_engine_default_device_requires_cuda(monkeypatch):
     ({"masks": True}, "mask")],
     ids=["kw1-packed", "kw2-multi-device", "kw3-mask"])
 def test_engine_refuses_unported_modes(kw, match):
+    """The packed forward and a mesh are not ported. Mask-conditioned
+    checkpoints are served; what is refused is a checkpoint whose input
+    channels do not fit its range's masks (3 channels on LUNG's one mask)."""
     sd = init_generator_state_dict(0, 1, BASE, 1)
-    st = sd
+    st, exc = sd, NotImplementedError
     if kw.pop("masks", False):
-        st = init_generator_state_dict(0, 3, BASE, 1)
-    with pytest.raises(NotImplementedError, match=match):
+        st, exc = init_generator_state_dict(0, 3, BASE, 1), ValueError
+        kw["st_range"] = LUNG
+    with pytest.raises(exc, match=match):
         _engine(st, sd, **kw)
 
 
@@ -301,9 +308,11 @@ def test_generate_cli_writes_quantized_series(tmp_path, flags, quant):
 
 @pytest.mark.parametrize("flags", [
     ["--write_working"], ["--num_devices", "2"],
-    ["--synthesis_mode", "additive"], ["--soft_squeeze"]],
+    ["--synthesis_mode", "additive"], ["--soft_squeeze", "--write_working"]],
     ids=["flags0", "flags3", "flags4", "flags5"])
 def test_generate_cli_refuses_unported_flags(flags):
+    """--soft_squeeze is ported (test_generate_cli_serves_trained_snapshots
+    runs it); beside an unported flag the run is still refused."""
     with pytest.raises(NotImplementedError, match="not ported"):
         tgen.main(["--dataset_names", "none", "--device", "cpu", *flags])
 
@@ -340,3 +349,167 @@ def test_package_imports_without_jax():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, "-c", code], check=True, cwd=root,
                    timeout=120)
+
+
+# --------------------------------------------------------- trunk="mega"
+def test_run_patient_mega_matches_jax_engine(pth_pair):
+    """run_patient(trunk="mega") against the JAX engine's run_patient (fp32,
+    forward='module'): |d| <= 1 stored unit on >= 99.9% of voxels; and the
+    mega, chain and plain trunks agree on the port side the same way."""
+    params, _, ref = pth_pair
+    sds = [generator_state_dict_from_jax(p) for p in params]
+    got = _engine(*sds, trunk="mega").run_patient(_volume(), 1.0, -1024.0,
+                                                  chunk=4)
+    assert got.dtype == np.int16 and got.shape == ref.shape
+    assert _within_one(got, ref)
+    for trunk in ("chain", "plain"):
+        other = _engine(*sds, trunk=trunk).run_patient(_volume(), 1.0,
+                                                       -1024.0, chunk=4)
+        assert _within_one(got, other), trunk
+
+
+# ------------------------------------------- mask-conditioned checkpoints
+MSIZE = 96   # the mask detectors zero a 32-px border: 32^2 has no lungs
+
+
+def _mask_pair():
+    """A 3-channel SOFT_TISSUE (image + bone + mediastinum) and a 2-channel
+    LUNG (image + lung) generator, seeded, with non-zero biases."""
+    rng = np.random.default_rng(21)
+    sds = [init_generator_state_dict(11, 3, BASE, 2),
+           init_generator_state_dict(12, 2, BASE, 2)]
+    for sd in sds:
+        for k in sd:
+            if k.endswith(".bias"):
+                sd[k] = rng.normal(0, 0.1, sd[k].shape).astype(np.float32)
+    return sds
+
+
+def _mask_volume(z=5, size=MSIZE):
+    return _volume(z=z, size=size)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_masked_ref(img_size, soft_squeeze, size=MSIZE):
+    sds = _mask_pair()
+    jeng = JaxEngine(*(generator_params_from_torch(sd, 2) for sd in sds),
+                     img_size=img_size, compute_dtype=jnp.float32,
+                     forward="module", soft_squeeze=soft_squeeze)
+    return jeng.run_patient(_mask_volume(size=size), 1.0, -1024.0, chunk=4)
+
+
+@pytest.mark.parametrize("soft_squeeze", [False, True],
+                         ids=["linear", "soft_squeeze"])
+@pytest.mark.parametrize("trunk", ["chain", "mega"])
+def test_masked_run_patient_matches_jax_engine(trunk, soft_squeeze):
+    """A 3-channel SOFT_TISSUE + 2-channel LUNG pair through run_patient
+    (5 slices, chunk 4: the z pad copies the last mask) against the JAX
+    engine at fp32: |d| <= 1 stored unit on >= 99.9% of voxels. With
+    soft_squeeze the SOFT_TISSUE input takes the squeeze (its range trains
+    with it), LUNG stays linear, and the result differs from the linear
+    one."""
+    ref = _jax_masked_ref(MSIZE, soft_squeeze)
+    eng = _engine(*_mask_pair(), img_size=MSIZE, trunk=trunk,
+                  soft_squeeze=soft_squeeze)
+    assert eng.use_masks and (eng.st_channels, eng.lung_channels) == (3, 2)
+    got = eng.run_patient(_mask_volume(), 1.0, -1024.0, chunk=4)
+    assert got.dtype == np.int16 and got.shape == ref.shape
+    assert _within_one(got, ref)
+    if soft_squeeze:
+        assert not _within_one(got, _jax_masked_ref(MSIZE, False))
+
+
+def test_masked_host_masks_match_jax_engine():
+    """The mask channels the engine feeds: equal to the JAX engine's
+    ``_host_masks`` arrays, non-empty, at model resolution with nearest
+    resize (96^2 slices into a 64^2 model), threaded or serial."""
+    sds = _mask_pair()
+    vol = _mask_volume(z=20)       # long enough for the threaded split
+    eng = _engine(*sds, img_size=64)
+    jeng = JaxEngine(*(generator_params_from_torch(sd, 2) for sd in sds),
+                     img_size=64, compute_dtype=jnp.float32, forward="module")
+    got, ref = eng._host_masks(vol, 1.0, -1024.0), \
+        jeng._host_masks(vol, 1.0, -1024.0)
+    assert set(got) == set(ref) == {"st", "lung"}
+    assert got["st"].shape == (20, 64, 64, 2)
+    assert got["lung"].shape == (20, 64, 64, 1)
+    for k in ref:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+        assert got[k].any() and set(np.unique(got[k])) <= {0.0, 1.0}
+    hu_vol = vol.astype(np.float32) - 1024.0
+    serial = eng._masks_threaded(hu_vol, ("lung",), n_workers=1)
+    split = eng._masks_threaded(hu_vol, ("lung",), n_workers=4)
+    np.testing.assert_array_equal(serial["lung"], split["lung"])
+
+
+def test_masked_run_patient_prefetch_and_resize():
+    """img_size 64 on 96^2 slices (antialiased image resize, nearest mask
+    resize) against the JAX engine; a prefetch_masks future, its result and
+    no masks argument give the same volume."""
+    ref = _jax_masked_ref(64, False)
+    eng = _engine(*_mask_pair(), img_size=64)
+    vol = _mask_volume()
+    fut = eng.prefetch_masks(vol, 1.0, -1024.0)
+    assert hasattr(fut, "result")
+    got = eng.run_patient(vol, 1.0, -1024.0, chunk=4, masks=fut)
+    assert _within_one(got, ref)
+    np.testing.assert_array_equal(
+        got, eng.run_patient(vol, 1.0, -1024.0, chunk=4, masks=fut.result()))
+    np.testing.assert_array_equal(
+        got, eng.run_patient(vol, 1.0, -1024.0, chunk=4))
+    plain = init_generator_state_dict(0, 1, BASE, 1)
+    assert _engine(plain, plain).prefetch_masks(vol, 1.0, -1024.0) is None
+
+
+def test_one_masked_model_with_a_released_one():
+    """A 3-channel soft-tissue checkpoint beside a 1-channel lung one: only
+    the soft-tissue model gets masks (ducosy_tpu/infer/engine.py:288-296)."""
+    st = _mask_pair()[0]
+    lung = init_generator_state_dict(13, 1, BASE, 2)
+    jeng = JaxEngine(generator_params_from_torch(st, 2),
+                     generator_params_from_torch(lung, 2), img_size=MSIZE,
+                     compute_dtype=jnp.float32, forward="module")
+    vol = _mask_volume(z=3)
+    ref = jeng.generate_batch(vol, 1.0, -1024.0)
+    eng = _engine(st, lung, img_size=MSIZE)
+    assert set(eng._host_masks(vol, 1.0, -1024.0)) == {"st"}
+    got = eng.generate_batch(vol, 1.0, -1024.0)
+    for k in ("st_stored", "lung_stored", "raw_hu"):
+        np.testing.assert_allclose(got[k], ref[k], rtol=1e-5, atol=2e-3,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("flags", [[], ["--soft_squeeze"]],
+                         ids=["linear", "soft_squeeze"])
+def test_generate_cli_serves_trained_snapshots(tmp_path, flags):
+    """The generate CLI on .pth snapshots written by the port's training
+    checkpoint code (3-channel SOFT_TISSUE, 2-channel LUNG): masks are
+    prefetched per patient, and every slice equals a direct run_patient."""
+    from ducosy_tpu_torch.train.checkpoint import save_generator_pth
+
+    write_dataset(str(tmp_path / "input"), n_patients=2, n_slices=3,
+                  size=MSIZE)
+    sds = _mask_pair()
+    paths = []
+    for name, sd in zip(("st", "lung"), sds):
+        gen = Generator.from_state_dict(sd, trunk="plain")
+        paths.append(str(tmp_path / f"G_{name}_A2B.pth"))
+        save_generator_pth(paths[-1], gen)
+    done = tgen.main([
+        "--input_dir_root", str(tmp_path / "input"),
+        "--output_dir_root", str(tmp_path / "output"),
+        "--dataset_names", "SynthSet", "--img_size", str(MSIZE),
+        "--slice_batch", "2", "--soft_tissue_model", paths[0],
+        "--lung_model", paths[1], "--compute_dtype", "float32",
+        "--device", "cpu", *flags])
+    assert done == 2
+    eng = _engine(*sds, img_size=MSIZE, soft_squeeze=bool(flags))
+    for pid in ("patient00", "patient01"):
+        src = tmp_path / "input" / "SynthSet" / pid / "POST VUE"
+        vol = np.stack([dcmread(str(f)).pixel_array
+                        for f in sorted(src.glob("*.dcm"))])
+        want = eng.run_patient(vol, 1.0, -1024.0, chunk=2).astype(vol.dtype)
+        out = tmp_path / "output" / "SynthSet" / pid
+        for i, f in enumerate(sorted(out.glob("*.dcm"))):
+            np.testing.assert_array_equal(dcmread(str(f)).pixel_array,
+                                          want[i])
