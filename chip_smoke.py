@@ -52,6 +52,14 @@ drives the serving path the way a user does, at full model width:
      against their plain versions on (16, 130, 130, 256), fp32 and bf16: K7
      pad 1 with and without the int8 write (code agreement) and once on an
      int8 input; K8 pad 1 and 0, x_pad 1, with and without int8 taps;
+  3r. K7 and K8 once more at ragged shapes, carries (2, 50, 70, 128),
+     (2, 50, 70, 192) and (1, 20, 24, 512): the pixels do not fill the last
+     tile, and the widths take the conv loop's 128- and 64-channel tiles,
+     the int8 loop's 64-byte rows, and two 256-channel tiles side by side;
+  3c. the conv loop alone (conv3x3, the launch K1, K6, K7 and K8 share) on
+     (16, 130, 130, 256): the bf16 loop's fp32 accumulator and per-tile
+     partials against the fp32 conv of the same bf16 values, the int8 loop
+     exact, TFLOP/s and TOP/s, beside one F.conv2d (bf16, channels_last);
   3p. the P1/P2 prototypes (ops/kernels/proto_conv_in.py): each wrapper
      against its plain version at the shapes its bench runs, (8 and 32, 130,
      130, 256) bf16 and n = 8 fp32; then the script's parity and its A/B
@@ -163,6 +171,16 @@ K7_BF16_MEAN_TOL = 0.01
 K8_TOL = {"float32": TOL[("k1", "float32")], "bfloat16": TOL[("k1", "bfloat16")]}
 K8_BF16_MEAN_TOL = K1_BF16_MEAN_TOL
 
+# The conv loop alone, tolerances set before any run:
+#  bf16: kernel and reference sum the same exact products of bf16 values in
+#    fp32, in another order (2304 terms): |d| <= 1e-3 + 1e-2 |ref|; the
+#    per-tile partials of the accumulator: mean within 1e-4, max within
+#    1e-3, M2 within 1e-3 relative of the tile's largest M2.
+#  int8: the int32 sums are exact, and both sides convert them to fp32 the
+#    same way: equal.
+CONV_TOL = (1e-3, 1e-2)
+RAGGED_SHAPES = ((2, 50, 70, 128), (2, 50, 70, 192), (1, 20, 24, 512))
+
 # Published dense peaks of one H100 SXM (NVIDIA's data sheet): the bound of
 # a kernel is the larger of its operations over the peak of their type and
 # its bytes (each input read once, each output written once) over the
@@ -238,6 +256,14 @@ def log(msg: str) -> None:
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def gpu_state() -> str:
+    """SM clock and power draw now, as nvidia-smi reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
 
@@ -414,11 +440,14 @@ def run_engine_phase(k1, k2, dev, st, lung, records):
     run(fast)                                 # warm-up: cuDNN autotune etc.
     k1.residual_chain.launches = 0
     k2.instance_norm.launches = 0
+    k1.conv3x3.launches = 0
     out_fast, _ = run(fast)                   # the main path, counted
     launches = {"residual_chain": k1.residual_chain.launches,
-                "instance_norm": k2.instance_norm.launches}
+                "instance_norm": k2.instance_norm.launches,
+                "conv3x3": k1.conv3x3.launches}
     want = {"residual_chain": 2 * 3 * n_chunks,
-            "instance_norm": 2 * 2 * n_chunks}
+            "instance_norm": 2 * 2 * n_chunks,
+            "conv3x3": 2 * 2 * BLOCKS * n_chunks}
     log(f"engine bf16 chain: launches {launches} (expected {want})")
     if launches != want:
         fail(f"serving path launch counts {launches} != {want}")
@@ -627,8 +656,9 @@ def check_tap_probe(tap, dev, records):
         fail(f"kernel disagrees with its plain version: {failures}")
 
 
-def check_conv_in(k7, dev, records):
-    """Phase 3m: K7 and K8 against their plain versions at the trunk shape."""
+def check_conv_in(k7, dev, records, shape=K1_SHAPE):
+    """Phase 3m: K7 and K8 against their plain versions at the trunk shape
+    (phase 3r: at a ragged ``shape``, the carry's interior)."""
     import torch
     import torch.nn.functional as F
 
@@ -636,9 +666,9 @@ def check_conv_in(k7, dev, records):
                                             quantize_weights_int8)
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
-    n, hw, _, c = K1_SHAPE
+    n, h, w, c = shape
     r = c // 16
-    x = torch.randn((n, c, hw, hw), generator=gen, device=dev)
+    x = torch.randn((n, c, h, w), generator=gen, device=dev)
     xp = F.pad(x, (1, 1, 1, 1), mode="reflect").permute(0, 2, 3, 1) \
         .contiguous()
     wa = torch.randn((3, 3, c, c), generator=gen, device=dev) * 0.02
@@ -648,7 +678,7 @@ def check_conv_in(k7, dev, records):
             torch.randn((7, 7, 2, 1), generator=gen, device=dev) * 0.1)
     waq, _ = quantize_weights_int8(wa)
     wbq, wbs = quantize_weights_int8(wb)
-    scratch = k7.make_scratch(n, hw, hw, c, dev)
+    scratch = k7.make_scratch(n, h, w, c, dev)
     failures = []
 
     def codes(name, got, ref, key, fn, plain_fn):
@@ -730,6 +760,87 @@ def check_conv_in(k7, dev, records):
                     max_abs_err=emax, ms=ms, plain_ms=plain_ms)
                 if not ok:
                     failures.append(f"K8 pad={pad} int8={in_int8} {dname}")
+    if failures:
+        fail(f"kernel disagrees with its plain version: {failures}")
+
+
+def check_conv_loop(k7, dev, records):
+    """Phase 3c: the conv launch that K1, K6, K7 and K8 share, alone."""
+    import torch
+    import torch.nn.functional as F
+
+    from ducosy_tpu_torch.ops.quant import (INT8_NORM_SCALE, quantize_shifted,
+                                            quantize_weights_int8)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    n, hw, _, c = K1_SHAPE
+    tm, tn = k7.tile_geometry()
+    if (tm, tn) != (k7.TILE_M, k7.TILE_N):
+        fail(f"tile geometry: the library has {(tm, tn)}, the wrappers "
+             f"{(k7.TILE_M, k7.TILE_N)}")
+    shape = (n, hw + 2, hw + 2, c)
+    x16 = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn((3, 3, c, c), generator=gen, device=dev) * 0.02
+    # int8 operands as the trunk has them: t on the shifted grid (ReLU'd, so
+    # about half the codes are -128) and per-channel quantized weights
+    x8 = quantize_shifted(torch.relu(x16.float()), INT8_NORM_SCALE)
+    w8, _ = quantize_weights_int8(w)
+    scratch = k7.make_scratch(n, hw, hw, c, dev)
+    flop = conv_flop(n, hw, c)
+    failures = []
+    for name, xp, wt in (("bf16", x16, w), ("int8", x8, w8)):
+        got = k7.conv3x3(xp, wt, scratch=scratch)
+        ref = k7.conv3x3_plain(xp, wt).reshape(n, hw * hw, c)
+        torch.cuda.synchronize()
+        if name == "int8":
+            ok = bool(torch.equal(got.acc, ref))
+            emax = float((got.acc - ref).abs().max())
+        else:
+            ok, emax, _ = compare(got.acc, ref, *CONV_TOL)
+        tiles = ref.reshape(n, -1, tm, c)
+        mean = tiles.mean(dim=2)
+        m2 = (tiles - mean[:, :, None]).square().sum(dim=2)
+        dmean = float((got.partials[0] - mean).abs().max())
+        dm2 = float((got.partials[1] - m2).abs().max() / m2.max())
+        dmax = float((got.partials[2] - tiles.amax(dim=2)).abs().max())
+        scale = float(ref.abs().max()) if name == "int8" else 1.0
+        ok = ok and dmean <= 1e-4 * scale and dm2 <= 1e-3 \
+            and dmax <= 1e-3 * scale
+        ms = cuda_ms(lambda: k7.conv3x3(xp, wt, scratch=scratch), 20)
+        plain_ms = cuda_ms(lambda: k7.conv3x3_plain(xp, wt), 3)
+        rate = flop / (ms * 1e-3) / 1e12
+        log(f"conv3x3 {name} {shape}: max|d|={emax:.3e} "
+            f"({'exact' if name == 'int8' else 'atol 1e-3, rtol 1e-2'}); "
+            f"partials mean {dmean:.2e} M2 rel {dm2:.2e} max {dmax:.2e}; "
+            f"kernel {ms:.4f} ms = {rate:.1f} "
+            f"{'TOP/s' if name == 'int8' else 'TFLOP/s'} (card after the "
+            f"timing loop: {gpu_state()}), plain {plain_ms:.4f} ms "
+            f"{'ok' if ok else 'FAIL'}")
+        records[("conv", name)] = dict(max_abs_err=emax, ms=ms,
+                                       plain_ms=plain_ms, rate=rate)
+        if not ok:
+            failures.append(f"conv3x3 {name}")
+    # where the bf16 loop's time goes: the same launch with its store, its
+    # statistics, both, or its MMAs compiled out, in alternating rounds
+    modes = {7: "whole", 6: "no store", 5: "no statistics",
+             4: "ring and MMAs, no epilogue", 0: "ring alone, no MMAs"}
+    rounds = {m: [] for m in modes}
+    for _ in range(3):
+        for m in modes:
+            rounds[m].append(cuda_ms(
+                lambda: k7.conv3x3_probe(x16, w, m, scratch), 20))
+    parts = {m: statistics.median(v) for m, v in rounds.items()}
+    records[("conv", "parts")] = parts
+    log("conv3x3 bf16 by parts (median of 3 alternating rounds): "
+        + ", ".join(f"{name} {parts[m]:.4f} ms" for m, name in modes.items()))
+    # one library call of the same function: timed here, used nowhere
+    xc = x16.permute(0, 3, 1, 2)
+    wc = w.permute(3, 2, 0, 1).to(torch.bfloat16) \
+        .contiguous(memory_format=torch.channels_last)
+    lib_ms = cuda_ms(lambda: F.conv2d(xc, wc), 20)
+    records[("conv", "bf16")]["library_ms"] = lib_ms
+    log(f"conv3x3 bf16: F.conv2d (bf16, channels_last) {lib_ms:.4f} ms = "
+        f"{flop / (lib_ms * 1e-3) / 1e12:.1f} TFLOP/s")
     if failures:
         fail(f"kernel disagrees with its plain version: {failures}")
 
@@ -1458,6 +1569,12 @@ def kernel_records(records) -> list:
          bound(2 * d1 * 2, fp32=8 * d1),
          records[("k2", "down1", "bfloat16")]["library_ms"]),
     ]
+    rows.append(
+        # the conv launch inside K1, K6, K7, K8, P1 and P2, alone
+        ("conv3x3 (shared loop)", "conv3x3.cuh", pallas + "conv_in.py:59",
+         records["launches"]["conv3x3"], records[("conv", "bf16")],
+         bound(carry + wts * 2 + 2 * inner, bf16=cf),
+         records[("conv", "bf16")]["library_ms"]))
     return [dict(name=name, route="cuda", source=csrc + src, replaces=rep,
                  launches=launches, **pick(rec), **bnd, library_ms=lib)
             for name, src, rep, launches, rec, bnd, lib in rows]
@@ -1514,10 +1631,16 @@ def main() -> None:
     for name in SOURCES:
         _build.load_library(name)
         log(f"  {name}.cu -> {_build.library_path(name).name}")
+        entry = ""
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or ("spill" in line and
-                                       "0 bytes spill stores" not in line):
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            spills = "spill" in line and "0 bytes spill stores" not in line
+            if "registers" in line or spills:
                 log(f"  nvcc: {line.strip()}")
+            if spills and "conv3x3" in entry:
+                fail(f"{name}.cu: the conv kernel {entry} spills registers: "
+                     f"{line.strip()}")
 
     records: dict = {}
     st = init_generator_state_dict(SEED + 10)
@@ -1534,6 +1657,9 @@ def main() -> None:
     phase("3q K2p", check_k2p, k2, dev, records)
     phase("3q P3", check_tap_probe, tap_probe, dev, records)
     phase("3m", check_conv_in, k7, dev, records)
+    for shape in RAGGED_SHAPES:
+        phase(f"3r {shape}", check_conv_in, k7, dev, {}, shape=shape)
+    phase("3c", check_conv_loop, k7, dev, records)
     phase("3p", run_proto_phase, proto, k7, dev, records)
     phase("4", run_engine_phase, k1, k2, dev, st, lung, records)
     phase("4q", run_quant_engine_phase, k1, k2, k4, dev, st, lung, records)

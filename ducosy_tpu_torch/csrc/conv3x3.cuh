@@ -1,30 +1,391 @@
 // The 3x3 VALID conv tiles shared by K1/K1q/K6 (residual_chain.cu) and
-// K7/K8 (conv_in.cu): an implicit GEMM of 128 pixels x 64 output channels
-// over the nine shifted taps of a pre-padded NHWC input, in bf16 (WMMA,
-// fp32 accumulate), exact fp32 (FMA on the CUDA cores) or int8 x int8 ->
-// exact int32 (mma.sync s8). Every variant ends in conv_epilogue: the fp32
-// accumulator goes to device memory with the tile's per-channel (mean, M2,
-// max) partials, which finalize_stats or channel_gate later merge. See the
-// design note in residual_chain.cu.
+// K7/K8 (conv_in.cu): an implicit GEMM over the nine shifted taps of a
+// pre-padded NHWC input. Every variant writes the fp32 accumulator to device
+// memory with the tile's per-channel (mean, M2, max) partials, which
+// finalize_stats or channel_gate later merge.
+//
+// conv3x3_wgmma, the bf16 (fp32 accumulate) and int8 x int8 -> exact int32
+// loop, designed for Hopper:
+//   What bounds it. One conv at the trunk shape (16, 128, 128, 256 -> 256)
+//   is 3.09e11 operations on ~0.3 GB: the tensor cores are the limit by far,
+//   and only wgmma reaches their rate. Below them the limit is what the SMs
+//   can pull from L2: a block that owns 128 pixels x BN output channels loads
+//   (128 + BN) x 128 bytes per K step of 2 x 128 x BN x 64 operations, so
+//   BN = 256 (one block per SM) does 85 operations per byte where 64-wide
+//   tiles did 43, and the A tile is read once per tap, not once per channel
+//   block.
+//   Tile. TILE_M = 128 flat pixels (the partials' geometry, shared with
+//   K2-K5, is unchanged) x BN = 256, 128 or 64 output channels, the widest
+//   that divides C. Two warpgroups, one per 64 pixels, each holding its
+//   m64 x BN accumulator in registers (128 a thread at BN = 256).
+//   Operands. Both K-major in shared memory: A rows are pixels, B rows are
+//   output channels (the wrappers lay bf16 weights out as (tap, cout, cin),
+//   the int8 layout), each row one 128-byte swizzle atom: 64 bf16 or 128
+//   int8 input channels per K step (64 int8 channels in 64-byte rows under
+//   the 64-byte swizzle where C is not a multiple of 128). Four wgmma of 32
+//   bytes of K per step and warpgroup, the descriptor advanced inside the
+//   atom.
+//   Ring. RING_STAGES = 4 stages of dynamic shared memory (48 KB each at
+//   BN = 256, 192 KB in all), filled with 16-byte cp.async copies whose
+//   destination carries the swizzle the descriptors name. cp.async and not
+//   TMA: a tile is 128 consecutive pixels of the flattened image, which is a
+//   TMA box only where the width divides 128; per-thread copies take any
+//   h x w, zero-fill the rows past h*w (src-size 0), and keep the partials'
+//   layout. Step kt first waits for its own stage, then one __syncthreads
+//   makes every thread's copies visible and proves that all MMAs of step
+//   kt - 2 have been waited for, so the stage they read is refilled with
+//   step kt + 2 while the MMAs of kt - 1 and kt run: two loads and one MMA
+//   group in flight, one barrier per step.
+//   Epilogue. From the accumulator registers: float2 stores of full 32-byte
+//   sectors, then the tile's statistics by a reduce-scatter over the eight
+//   lanes that share a column (14 shuffles for 16 columns) and one pass
+//   through shared memory across the eight warps: sum and max, then, with
+//   the tile mean broadcast back, the centred M2. No serial row walk.
+//   What is left. The ring with its MMAs runs at about two thirds of the
+//   tensor cores' peak, and by count (no counter can be read on the card to
+//   confirm it) shared memory is why: each warpgroup's m64n256k16
+//   reads 2 KB of A and 8 KB of B in the 128 cycles it computes, 80 bytes a
+//   cycle, and the copies write another 47, of the 128 bytes a cycle an SM's
+//   shared memory moves. The rest of the kernel's time is its exposed ends:
+//   the 128 KB fp32 store of a tile, the statistics, and filling the ring
+//   (the probe below times them; PERF.md has the numbers). Tried on the card
+//   and dropped: 128 x 128 tiles with two blocks an SM, so that one block's
+//   epilogue overlaps the other's MMAs, ran slower (twice the B traffic from
+//   L2 costs more than the overlap wins); a persistent grid that loads the
+//   next tile's first stages during the epilogue ran no faster to speak of
+//   and took the registers to the limit; three stages of lookahead, paid for
+//   with a second barrier per step after the MMAs' wait, made the loads
+//   alone faster and the loop with its MMAs slower; warp specialisation (a
+//   producer warpgroup under setmaxnreg filling the ring through mbarriers,
+//   up to four stages ahead, two consumer warpgroups with no block barrier
+//   in the loop), with and without a persistent tile walk, ran 4-5% slower
+//   at the trunk shape and up to 26% slower at narrow ragged ones: the loads
+//   were not what the MMAs waited for. Not tried: TMA multicast of B over a
+//   cluster, which would halve B's way from L2 but not its reads from shared
+//   memory.
+// conv3x3_f32 is the exact-FMA parity mode on the CUDA cores, 128 x 64 tiles
+// with the epilogue staged in shared memory.
 #pragma once
 
-#include <mma.h>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace ducosy {
 
-using namespace nvcuda;
-
-constexpr int CONV_THREADS = 256;
-constexpr int BK = 32;               // bf16 input channels per K step
-constexpr int AS_LD = BK + 8;        // bf16 row stride of the A tile (80 B)
-constexpr int BS_LD = TILE_N + 8;    // bf16 row stride of the B tile (144 B)
+constexpr int CONV_THREADS = 256;    // two warpgroups
 constexpr int BKF = 16;              // fp32 input channels per K step
+constexpr int RING_STAGES = 4;
+constexpr int RING_AHEAD = RING_STAGES - 2;   // stages loaded ahead of the MMAs
+constexpr int RING_ALIGN = 1024;     // a swizzle atom repeats every 1024 B
+// the parts of conv3x3_wgmma that the timing probe can leave out
+constexpr int PART_STORE = 1, PART_STATS = 2, PART_MMA = 4, PART_ALL = 7;
 
-// Epilogue shared by both convs: the accumulator tile is in cs (fp32,
-// row = pixel, column = output channel). Write it to acc (n, h*w, c) and
-// emit the tile's per-channel partials.
+// ---- PTX used by the ring and the MMAs
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared, bypassing L1; zero-fills when !ok (src is
+// still a valid address)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// orders the copies' shared-memory writes before the MMAs' reads of them
+__device__ __forceinline__ void fence_async_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// pins the accumulators between plain code and the asynchronous MMAs
+__device__ __forceinline__ void pin(float& v) { asm volatile("" : "+f"(v)::"memory"); }
+__device__ __forceinline__ void pin(int& v) { asm volatile("" : "+r"(v)::"memory"); }
+
+// wgmma.mma_async m64 x BN, A and B from K-major shared-memory descriptors,
+// d += a * b: bf16 (k16, fp32 accumulate) and s8 (k32, int32 accumulate).
+// A thread holds BN / 2 accumulators: for each 8 columns j, d[4j + {0, 1}] is
+// row 16 warp + lane / 4, columns 8j + 2 (lane % 4) + {0, 1}; d[4j + {2, 3}]
+// the same columns of row + 8.
+#define DUCOSY_P10(t) \
+  "%" #t "0,%" #t "1,%" #t "2,%" #t "3,%" #t "4,%" #t "5,%" #t "6,%" #t "7,%" #t "8,%" #t "9"
+#define DUCOSY_REGS64 DUCOSY_P10() "," DUCOSY_P10(1) "," DUCOSY_P10(2) ",%30,%31"
+#define DUCOSY_REGS128                                                      \
+  DUCOSY_P10() "," DUCOSY_P10(1) "," DUCOSY_P10(2) "," DUCOSY_P10(3) ","    \
+  DUCOSY_P10(4) "," DUCOSY_P10(5) ",%60,%61,%62,%63"
+#define DUCOSY_REGS256                                                      \
+  DUCOSY_P10() "," DUCOSY_P10(1) "," DUCOSY_P10(2) "," DUCOSY_P10(3) ","    \
+  DUCOSY_P10(4) "," DUCOSY_P10(5) "," DUCOSY_P10(6) "," DUCOSY_P10(7) ","   \
+  DUCOSY_P10(8) "," DUCOSY_P10(9) "," DUCOSY_P10(10) "," DUCOSY_P10(11)     \
+  ",%120,%121,%122,%123,%124,%125,%126,%127"
+#define DUCOSY_D8(K, d, o)                                                  \
+  K(d[(o)]), K(d[(o) + 1]), K(d[(o) + 2]), K(d[(o) + 3]), K(d[(o) + 4]),    \
+  K(d[(o) + 5]), K(d[(o) + 6]), K(d[(o) + 7])
+#define DUCOSY_D32(K, d, o)                                                 \
+  DUCOSY_D8(K, d, (o)), DUCOSY_D8(K, d, (o) + 8), DUCOSY_D8(K, d, (o) + 16), \
+  DUCOSY_D8(K, d, (o) + 24)
+#define DUCOSY_ACC64(K, d) DUCOSY_D32(K, d, 0)
+#define DUCOSY_ACC128(K, d) DUCOSY_D32(K, d, 0), DUCOSY_D32(K, d, 32)
+#define DUCOSY_ACC256(K, d) \
+  DUCOSY_ACC128(K, d), DUCOSY_D32(K, d, 64), DUCOSY_D32(K, d, 96)
+
+template <int BN> struct Wgmma;
+#define DUCOSY_WGMMA(BN, REGS, ACC, DA, DB, ONE)                              \
+  template <> struct Wgmma<BN> {                                              \
+    static __device__ __forceinline__ void mma(float (&d)[BN / 2],            \
+                                               uint64_t a, uint64_t b) {      \
+      asm volatile(                                                           \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, " ONE ", 0;\n"                     \
+          "wgmma.mma_async.sync.aligned.m64n" #BN "k16.f32.bf16.bf16 {" REGS   \
+          "}, " DA ", " DB ", p, 1, 1, 0, 0;\n}\n"                             \
+          : ACC("+f", d)                                                      \
+          : "l"(a), "l"(b), "r"(1));                                          \
+    }                                                                         \
+    static __device__ __forceinline__ void mma(int (&d)[BN / 2], uint64_t a,  \
+                                               uint64_t b) {                  \
+      asm volatile(                                                           \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, " ONE ", 0;\n"                     \
+          "wgmma.mma_async.sync.aligned.m64n" #BN "k32.s32.s8.s8 {" REGS       \
+          "}, " DA ", " DB ", p;\n}\n"                                         \
+          : ACC("+r", d)                                                      \
+          : "l"(a), "l"(b), "r"(1));                                          \
+    }                                                                         \
+  };
+DUCOSY_WGMMA(64, DUCOSY_REGS64, DUCOSY_ACC64, "%32", "%33", "%34")
+DUCOSY_WGMMA(128, DUCOSY_REGS128, DUCOSY_ACC128, "%64", "%65", "%66")
+DUCOSY_WGMMA(256, DUCOSY_REGS256, DUCOSY_ACC256, "%128", "%129", "%130")
+#undef DUCOSY_WGMMA
+
+// One reduce-scatter step over the lane bit BIT: the LEN values of s are
+// halved, the lane with the bit clear keeping the lower half's sums (or
+// maxima) over both lanes, its partner the upper half's.
+template <int LEN, int BIT, bool MAX>
+__device__ __forceinline__ void scatter_step(float (&s)[16], int lane) {
+  const bool hi = lane & BIT;
+#pragma unroll
+  for (int i = 0; i < LEN / 2; ++i) {
+    const float send = hi ? s[i] : s[i + LEN / 2];
+    const float keep = hi ? s[i + LEN / 2] : s[i];
+    const float recv = __shfl_xor_sync(0xffffffffu, send, BIT);
+    s[i] = MAX ? fmaxf(keep, recv) : keep + recv;
+  }
+}
+
+// s holds, for this thread's two rows, 16 column values of one 64-column
+// chunk (index 2 jj + e is column 8 jj + 2 (lane % 4) + e). Reduces over
+// the warp's 16 rows; lane l ends with columns 2 l and 2 l + 1 of the chunk
+// in s[0], s[1].
+template <bool MAX>
+__device__ __forceinline__ void warp_columns(float (&s)[16], int lane) {
+  scatter_step<16, 16, MAX>(s, lane);
+  scatter_step<8, 8, MAX>(s, lane);
+  scatter_step<4, 4, MAX>(s, lane);
+}
+
+// 3x3 VALID conv on the tensor cores, fp32 out. TIn is bf16 (fp32
+// accumulate) or int8_t (shifted-grid activations x per-channel weights,
+// exact int32). xp (n, h+2, w+2, c); wt (9, c, c) as (tap, cout, cin). ROWB:
+// bytes of input channels per K step and operand row (128, or 64 for int8
+// where c % 128 != 0). Grid (c / BN, tiles, n), CONV_THREADS threads,
+// RING_STAGES * (TILE_M + BN) * ROWB + RING_ALIGN bytes of dynamic shared
+// memory. See the note at the top of the file. PARTS is PART_ALL everywhere
+// but in the timing probe (ducosy_conv3x3_probe), which compiles parts out.
+template <typename TIn, int ROWB, int BN, int PARTS = PART_ALL>
+__global__ void __launch_bounds__(CONV_THREADS, 1)
+conv3x3_wgmma(const TIn* __restrict__ xp, const TIn* __restrict__ wt,
+              float* __restrict__ acc, float* __restrict__ pmean,
+              float* __restrict__ pm2, float* __restrict__ pmax, int h, int w,
+              int c) {
+  using Acc = std::conditional_t<sizeof(TIn) == 1, int, float>;
+  constexpr int EPC = 16 / sizeof(TIn);          // elements per 16-byte chunk
+  constexpr int KB = ROWB / sizeof(TIn);         // input channels per K step
+  constexpr int CPR = ROWB / 16;                 // chunks per operand row
+  constexpr int RPP = CONV_THREADS / CPR;        // rows per load pass
+  constexpr int A_PASSES = TILE_M / RPP, B_PASSES = BN / RPP;
+  constexpr int A_BYTES = TILE_M * ROWB, STAGE = (TILE_M + BN) * ROWB;
+  constexpr int NB = BN / 8, CHUNKS = BN / 64;   // 8- and 64-column groups
+  // descriptor: start address >> 4 | LBO (unused under a swizzle) = 1 |
+  // SBO = 8 rows | layout 1 = 128-byte, 2 = 64-byte swizzle
+  constexpr uint64_t DESC = (uint64_t(1) << 16) |
+                            (uint64_t(8 * ROWB / 16) << 32) |
+                            (uint64_t(ROWB == 128 ? 1 : 2) << 62);
+  extern __shared__ unsigned char ring_raw[];
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int co0 = blockIdx.x * BN, tile = blockIdx.y, ni = blockIdx.z;
+  const int hw = h * w, wp = w + 2, m0 = tile * TILE_M;
+  const int rows = min(TILE_M, hw - m0);
+  const uint32_t ring =
+      (smem_u32(ring_raw) + RING_ALIGN - 1) & ~uint32_t(RING_ALIGN - 1);
+
+  // loads: this thread copies chunk ld_chunk of rows ld_row + i RPP, to the
+  // swizzled place: chunk ^ (row % 8) in 128-byte rows, chunk ^ (row / 2 % 4)
+  // in 64-byte rows (RPP is a multiple of 8: the same for every pass)
+  const int ld_row = tid / CPR, ld_chunk = tid % CPR;
+  const int sw = ROWB == 128 ? ld_row & 7 : (ld_row >> 1) & 3;
+  const uint32_t dst0 = ring + ld_row * ROWB + ((ld_chunk ^ sw) << 4);
+  const TIn* xs = xp + (size_t)ni * (h + 2) * wp * c + ld_chunk * EPC;
+  int a_off[A_PASSES];
+  bool a_ok[A_PASSES];
+#pragma unroll
+  for (int i = 0; i < A_PASSES; ++i) {
+    const int m = m0 + ld_row + i * RPP;
+    a_ok[i] = m < hw;
+    a_off[i] = a_ok[i] ? ((m / w) * wp + m % w) * c : 0;
+  }
+  const TIn* ws = wt + (size_t)(co0 + ld_row) * c + ld_chunk * EPC;
+
+  int ld_tap = 0, ld_k0 = 0, ld_slot = 0;
+  auto load_stage = [&]() {
+    const uint32_t dst = dst0 + ld_slot * STAGE;
+    const TIn* a = xs + ((ld_tap / 3) * wp + ld_tap % 3) * c + ld_k0;
+#pragma unroll
+    for (int i = 0; i < A_PASSES; ++i)
+      cp_async16(dst + i * RPP * ROWB, a + a_off[i], a_ok[i]);
+    const TIn* b = ws + (size_t)ld_tap * c * c + ld_k0;
+#pragma unroll
+    for (int i = 0; i < B_PASSES; ++i)
+      cp_async16(dst + A_BYTES + i * RPP * ROWB, b + (size_t)i * RPP * c, true);
+    ld_k0 += KB;
+    if (ld_k0 == c) { ld_k0 = 0; ++ld_tap; }
+    ld_slot = ld_slot + 1 == RING_STAGES ? 0 : ld_slot + 1;
+  };
+
+  Acc d[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) d[i] = 0;
+
+  const int steps = 9 * (c / KB);                // >= 9 > RING_AHEAD
+#pragma unroll
+  for (int s = 0; s < RING_AHEAD; ++s) {
+    load_stage();
+    cp_async_commit();
+  }
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) pin(d[i]);
+  // this warpgroup's 64 A rows, and the B rows, of stage 0
+  const uint32_t a0 = ring + (warp / 4) * 64 * ROWB, b0 = ring + A_BYTES;
+  int slot = 0;
+  for (int kt = 0; kt < steps; ++kt) {
+    cp_async_wait<RING_AHEAD - 1>();             // this thread's part of kt
+    fence_async_proxy();
+    __syncthreads();    // all of stage kt landed; MMAs of kt - 2 all waited for
+    if (kt + RING_AHEAD < steps) load_stage();
+    cp_async_commit();
+    if constexpr (PARTS & PART_MMA) {
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < ROWB / 32; ++k)
+        Wgmma<BN>::mma(d,
+                       DESC | (((a0 + slot * STAGE + k * 32) & 0x3FFFF) >> 4),
+                       DESC | (((b0 + slot * STAGE + k * 32) & 0x3FFFF) >> 4));
+      wgmma_commit();
+      wgmma_wait<1>();                           // the MMAs of kt - 1 are done
+    }
+    slot = slot + 1 == RING_STAGES ? 0 : slot + 1;
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) pin(d[i]);
+  __syncthreads();                               // the ring is free
+
+  // ---- epilogue, from the registers. This thread's rows r0 and r0 + 8.
+  unsigned char* base = ring_raw + (ring - smem_u32(ring_raw));
+  float* red = reinterpret_cast<float*>(base);   // [8 warps][BN] sums, then M2
+  float* redx = red + 8 * BN;                    // [8 warps][BN] maxima
+  float* tmean = redx + 8 * BN;                  // [BN] tile means
+  const int r0 = warp * 16 + lane / 4, cq = (lane % 4) * 2;
+  const bool ok0 = r0 < rows, ok1 = r0 + 8 < rows;
+  float* o0 = acc + ((size_t)ni * hw + m0 + r0) * c + co0 + cq;
+  float* o1 = o0 + (size_t)8 * c;
+  // (the probe without the store keeps the branch, never taken: h > 0; with
+  // no reader of the accumulators the assembler drops the MMAs)
+  if ((PARTS & PART_STORE) || h < 0) {
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      if (ok0)
+        *reinterpret_cast<float2*>(o0 + j * 8) =
+            make_float2((float)d[4 * j], (float)d[4 * j + 1]);
+      if (ok1)
+        *reinterpret_cast<float2*>(o1 + j * 8) =
+            make_float2((float)d[4 * j + 2], (float)d[4 * j + 3]);
+    }
+  }
+  if constexpr (PARTS & PART_STATS) {
+#pragma unroll
+  for (int q = 0; q < CHUNKS; ++q) {
+    float s[16], mx[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int at = (8 * q + i / 2) * 4 + i % 2;
+      const float v0 = (float)d[at], v1 = (float)d[at + 2];
+      s[i] = (ok0 ? v0 : 0.f) + (ok1 ? v1 : 0.f);
+      mx[i] = fmaxf(ok0 ? v0 : -INFINITY, ok1 ? v1 : -INFINITY);
+    }
+    warp_columns<false>(s, lane);
+    *reinterpret_cast<float2*>(red + warp * BN + 64 * q + 2 * lane) =
+        make_float2(s[0], s[1]);
+    if (pmax) {
+      warp_columns<true>(mx, lane);
+      *reinterpret_cast<float2*>(redx + warp * BN + 64 * q + 2 * lane) =
+          make_float2(mx[0], mx[1]);
+    }
+  }
+  __syncthreads();
+  const size_t pbase = ((size_t)ni * gridDim.y + tile) * c + co0;
+  if (tid < BN) {
+    float t = 0.f, x = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) t += red[k * BN + tid];
+    tmean[tid] = pmean[pbase + tid] = t / rows;
+    if (pmax) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) x = fmaxf(x, redx[k * BN + tid]);
+      pmax[pbase + tid] = x;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < CHUNKS; ++q) {
+    float s[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int at = (8 * q + i / 2) * 4 + i % 2;
+      const float m = tmean[64 * q + (i / 2) * 8 + cq + i % 2];
+      const float e0 = (float)d[at] - m, e1 = (float)d[at + 2] - m;
+      s[i] = (ok0 ? e0 * e0 : 0.f) + (ok1 ? e1 * e1 : 0.f);
+    }
+    warp_columns<false>(s, lane);
+    *reinterpret_cast<float2*>(red + warp * BN + 64 * q + 2 * lane) =
+        make_float2(s[0], s[1]);
+  }
+  __syncthreads();
+  if (tid < BN) {
+    float t = 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) t += red[k * BN + tid];
+    pm2[pbase + tid] = t;
+  }
+  }  // PART_STATS
+}
+
+// Epilogue of conv3x3_f32: the accumulator tile is in cs (fp32, row = pixel,
+// column = output channel). Write it to acc (n, h*w, c) and emit the tile's
+// per-channel partials.
 __device__ __forceinline__ void conv_epilogue(const float* cs, int rows,
                                               float* acc, float* pmean,
                                               float* pm2, float* pmax,
@@ -41,93 +402,10 @@ __device__ __forceinline__ void conv_epilogue(const float* cs, int rows,
   tile_stats(cs, rows, pmean, pm2, pmax, ((size_t)ni * tiles + tile) * c + co0);
 }
 
-// 3x3 VALID conv, bf16 in, fp32 out. xp (n, h+2, w+2, c); wt (9*c, c) as
-// (tap, cin, cout). Grid (c / TILE_N, tiles, n); 8 warps as 4 (pixels) x
-// 2 (channels), each warp a 32x32 block of 2x2 WMMA fragments.
-__global__ void __launch_bounds__(CONV_THREADS)
-conv3x3_bf16(const bf16* __restrict__ xp, const bf16* __restrict__ wt,
-             float* __restrict__ acc, float* __restrict__ pmean,
-             float* __restrict__ pm2, float* __restrict__ pmax, int h, int w,
-             int c) {
-  __shared__ __align__(128) unsigned char smem[TILE_SMEM];
-  bf16* as = reinterpret_cast<bf16*>(smem);          // TILE_M x AS_LD
-  bf16* bs = as + TILE_M * AS_LD;                     // BK x BS_LD
-  float* cs = reinterpret_cast<float*>(smem);         // aliases as/bs after
-
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = warp % 4, wn = warp / 4;
-  const int co0 = blockIdx.x * TILE_N, tile = blockIdx.y, ni = blockIdx.z;
-  const int hw = h * w, wp = w + 2, m0 = tile * TILE_M;
-  const int rows = min(TILE_M, hw - m0);
-
-  // A loads: rows tid/4 and tid/4 + 64 of the tile, 16-byte vector tid%4
-  const int a_row = tid / 4, a_vec = tid % 4;
-  const bf16* a_src[2];
-  bool a_ok[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int m = m0 + a_row + 64 * i;
-    a_ok[i] = m < hw;
-    const int mm = a_ok[i] ? m : 0;
-    a_src[i] = xp + (((size_t)ni * (h + 2) + mm / w) * wp + mm % w) * c +
-               a_vec * 8;
-  }
-  // B loads: row tid/8 of the K step, 16-byte vector tid%8
-  const int b_row = tid / 8, b_vec = tid % 8;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(fc[i][j], 0.f);
-
-  for (int tap = 0; tap < 9; ++tap) {
-    const size_t tap_off = ((size_t)(tap / 3) * wp + tap % 3) * c;
-    for (int k0 = 0; k0 < c; k0 += BK) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (a_ok[i]) v = *reinterpret_cast<const uint4*>(a_src[i] + tap_off + k0);
-        *reinterpret_cast<uint4*>(as + (a_row + 64 * i) * AS_LD + a_vec * 8) = v;
-      }
-      *reinterpret_cast<uint4*>(bs + b_row * BS_LD + b_vec * 8) =
-          *reinterpret_cast<const uint4*>(
-              wt + ((size_t)tap * c + k0 + b_row) * c + co0 + b_vec * 8);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], as + (wm * 32 + i * 16) * AS_LD + kk,
-                                 AS_LD);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(fb[j], bs + kk * BS_LD + wn * 32 + j * 16,
-                                 BS_LD);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(fc[i][j], fa[i], fb[j], fc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(cs + (wm * 32 + i * 16) * CS_LD + wn * 32 + j * 16,
-                              fc[i][j], CS_LD, wmma::mem_row_major);
-  __syncthreads();
-  conv_epilogue(cs, rows, acc, pmean, pm2, pmax, ni, tile, gridDim.y, m0, co0,
-                hw, c);
-}
-
 // 3x3 VALID conv in exact fp32 (FMA on the CUDA cores): the parity mode.
-// Same tiling as the bf16 kernel; each thread owns 8 pixels x 4 channels.
+// xp (n, h+2, w+2, c); wt (9*c, c) as (tap, cin, cout). Grid (c / TILE_N,
+// tiles, n); a block owns 128 pixels x 64 channels, each thread 8 pixels x
+// 4 channels.
 __global__ void __launch_bounds__(CONV_THREADS)
 conv3x3_f32(const float* __restrict__ xp, const float* __restrict__ wt,
             float* __restrict__ acc, float* __restrict__ pmean,
@@ -204,97 +482,67 @@ conv3x3_f32(const float* __restrict__ xp, const float* __restrict__ wt,
                 hw, c);
 }
 
-// K1q's conv2: 3x3 VALID conv, int8 x int8 -> exact int32 on the tensor
-// cores, fp32 out. xp (n, h+2, w+2, c) shifted-grid int8; wt (9, c, c) as
-// (tap, cout, cin): each output channel's input channels contiguous, the
-// column-major B operand of mma.sync. Same tiling as conv3x3_bf16: grid
-// (c / TILE_N, tiles, n), 8 warps as 4 (pixels) x 2 (channels), each warp
-// 32 x 32 as 2 x 4 m16n8 tiles; K steps of 64 channels, one 16-byte load
-// per thread and operand row segment.
-__global__ void __launch_bounds__(CONV_THREADS)
-conv3x3_int8(const int8_t* __restrict__ xp, const int8_t* __restrict__ wt,
-             float* __restrict__ acc, float* __restrict__ pmean,
-             float* __restrict__ pm2, float* __restrict__ pmax, int h, int w,
-             int c) {
-  __shared__ __align__(128) unsigned char smem[TILE_SMEM];
-  int8_t* as = reinterpret_cast<int8_t*>(smem);       // TILE_M x LD8
-  int8_t* bs = as + TILE_M * LD8;                      // TILE_N x LD8
-  float* cs = reinterpret_cast<float*>(smem);          // aliases as/bs after
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp % 4, wn = warp / 4;
-  const int g = lane / 4, tg = lane % 4;               // fragment coordinates
-  const int co0 = blockIdx.x * TILE_N, tile = blockIdx.y, ni = blockIdx.z;
-  const int hw = h * w, wp = w + 2, m0 = tile * TILE_M;
-  const int rows = min(TILE_M, hw - m0);
-
-  // A loads: rows tid/4 and tid/4 + 64, 16-byte vector tid%4; B loads:
-  // output channel tid/4, 16-byte vector tid%4
-  const int a_row = tid / 4, a_vec = tid % 4;
-  const int8_t* a_src[2];
-  bool a_ok[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int m = m0 + a_row + 64 * i;
-    a_ok[i] = m < hw;
-    const int mm = a_ok[i] ? m : 0;
-    a_src[i] = xp + (((size_t)ni * (h + 2) + mm / w) * wp + mm % w) * c +
-               a_vec * 16;
-  }
-  const int8_t* b_src = wt + (size_t)(co0 + a_row) * c + a_vec * 16;
-
-  int d[2][4][4] = {};
-  for (int tap = 0; tap < 9; ++tap) {
-    const size_t tap_off = ((size_t)(tap / 3) * wp + tap % 3) * c;
-    for (int k0 = 0; k0 < c; k0 += BK8) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (a_ok[i]) v = *reinterpret_cast<const uint4*>(a_src[i] + tap_off + k0);
-        *reinterpret_cast<uint4*>(as + (a_row + 64 * i) * LD8 + a_vec * 16) = v;
-      }
-      *reinterpret_cast<uint4*>(bs + a_row * LD8 + a_vec * 16) =
-          *reinterpret_cast<const uint4*>(b_src + (size_t)tap * c * c + k0);
-      __syncthreads();
-      warp_mma_s8_step(as, bs, wm, wn, lane, d);
-      __syncthreads();
-    }
-  }
-  // the int32 accumulators to fp32, at their (pixel, channel) in cs
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = wm * 32 + i * 16 + g, col = wn * 32 + j * 8 + tg * 2;
-      cs[r * CS_LD + col] = static_cast<float>(d[i][j][0]);
-      cs[r * CS_LD + col + 1] = static_cast<float>(d[i][j][1]);
-      cs[(r + 8) * CS_LD + col] = static_cast<float>(d[i][j][2]);
-      cs[(r + 8) * CS_LD + col + 1] = static_cast<float>(d[i][j][3]);
-    }
-  __syncthreads();
-  conv_epilogue(cs, rows, acc, pmean, pm2, pmax, ni, tile, gridDim.y, m0, co0,
-                hw, c);
-}
-
-template <typename T>
-void launch_conv(const T* xp, const T* wt, float* acc, float* pmean,
+// Launch of one conv3x3_wgmma instantiation. The shared-memory limit of the
+// kernel is raised once; its error, like a refused launch's, is returned.
+// static: each library that includes this header has its own copy of the
+// kernel and must raise its own limit, and the once-flag of a function with
+// external linkage would be one symbol for all libraries of the process.
+template <typename TIn, int ROWB, int BN, int PARTS = PART_ALL>
+static int launch_wgmma(const TIn* xp, const TIn* wt, float* acc, float* pmean,
                  float* pm2, float* pmax, int n, int h, int w, int c,
                  int tiles, cudaStream_t s) {
-  const dim3 grid(c / TILE_N, tiles, n);
-  if constexpr (sizeof(T) == 2)
-    conv3x3_bf16<<<grid, CONV_THREADS, 0, s>>>(xp, wt, acc, pmean, pm2, pmax,
-                                               h, w, c);
-  else
-    conv3x3_f32<<<grid, CONV_THREADS, 0, s>>>(xp, wt, acc, pmean, pm2, pmax,
-                                              h, w, c);
+  constexpr int smem = RING_STAGES * (TILE_M + BN) * ROWB + RING_ALIGN;
+  static const cudaError_t raised = cudaFuncSetAttribute(
+      conv3x3_wgmma<TIn, ROWB, BN, PARTS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (raised != cudaSuccess) return (int)raised;
+  conv3x3_wgmma<TIn, ROWB, BN, PARTS>
+      <<<dim3(c / BN, tiles, n), CONV_THREADS, smem, s>>>(
+          xp, wt, acc, pmean, pm2, pmax, h, w, c);
+  return (int)cudaGetLastError();
 }
 
-// conv3x3_int8's launch: xp shifted-grid int8, wt int8 as (tap, cout, cin).
-inline void launch_conv_int8(const int8_t* xp, const int8_t* wt, float* acc,
-                             float* pmean, float* pm2, float* pmax, int n,
-                             int h, int w, int c, int tiles, cudaStream_t s) {
-  conv3x3_int8<<<dim3(c / TILE_N, tiles, n), CONV_THREADS, 0, s>>>(
-      xp, wt, acc, pmean, pm2, pmax, h, w, c);
+// The conv of a float or bf16 input: wt (tap, cin, cout) for float,
+// (tap, cout, cin) for bf16. c a multiple of 64. Returns the launch's
+// error, or 0.
+template <typename T>
+int launch_conv(const T* xp, const T* wt, float* acc, float* pmean,
+                float* pm2, float* pmax, int n, int h, int w, int c,
+                int tiles, cudaStream_t s) {
+  if constexpr (sizeof(T) == 2) {
+    if (c % 256 == 0)
+      return launch_wgmma<T, 128, 256>(xp, wt, acc, pmean, pm2, pmax, n, h, w,
+                                       c, tiles, s);
+    if (c % 128 == 0)
+      return launch_wgmma<T, 128, 128>(xp, wt, acc, pmean, pm2, pmax, n, h, w,
+                                       c, tiles, s);
+    return launch_wgmma<T, 128, 64>(xp, wt, acc, pmean, pm2, pmax, n, h, w, c,
+                                    tiles, s);
+  } else {
+    conv3x3_f32<<<dim3(c / TILE_N, tiles, n), CONV_THREADS, 0, s>>>(
+        xp, wt, acc, pmean, pm2, pmax, h, w, c);
+    return (int)cudaGetLastError();
+  }
+}
+
+// The int8 conv: xp shifted-grid int8, wt int8 as (tap, cout, cin).
+inline int launch_conv_int8(const int8_t* xp, const int8_t* wt, float* acc,
+                            float* pmean, float* pm2, float* pmax, int n,
+                            int h, int w, int c, int tiles, cudaStream_t s) {
+  if (c % 256 == 0)
+    return launch_wgmma<int8_t, 128, 256>(xp, wt, acc, pmean, pm2, pmax, n, h,
+                                          w, c, tiles, s);
+  if (c % 128 == 0)
+    return launch_wgmma<int8_t, 128, 128>(xp, wt, acc, pmean, pm2, pmax, n, h,
+                                          w, c, tiles, s);
+  return launch_wgmma<int8_t, 64, 64>(xp, wt, acc, pmean, pm2, pmax, n, h, w,
+                                      c, tiles, s);
 }
 
 }  // namespace ducosy
+
+#define DUCOSY_TRY(call)            \
+  do {                              \
+    const int e_ = (call);          \
+    if (e_ != 0) return e_;         \
+  } while (0)

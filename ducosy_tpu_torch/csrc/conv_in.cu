@@ -33,11 +33,11 @@
 // norm_apply (or norm_apply_int8); K8 = conv tile kernel with the per-tile
 // channel max -> channel_gate -> spatial_tail. The TPU kernels keep one
 // sample's whole (130, 130, 256) window in VMEM on a grid of (N,); here the
-// conv is tiled over 128 pixels x 64 output channels and every whole-image
-// reduction is per-tile partials plus an apply step. What it gives up is
-// what K1 gives up: the fp32 accumulator round-trips device memory
-// (n * h * w * c * 4 bytes per conv), and the conv main loop is WMMA /
-// mma.sync without cp.async or TMA pipelining.
+// conv is tiled over 128 pixels x up to 256 output channels (wgmma on a
+// cp.async ring, conv3x3.cuh) and every whole-image reduction is per-tile
+// partials plus an apply step. What it gives up is what K1 gives up: the
+// fp32 accumulator round-trips device memory (n * h * w * c * 4 bytes per
+// conv).
 #include "cbam_tail.cuh"
 #include "conv3x3.cuh"
 
@@ -46,16 +46,17 @@ namespace {
 
 // The conv of either half: TIn is bf16, float or int8_t.
 template <typename TIn>
-void conv_any(const void* xp, const void* wt, float* acc, float* pmean,
-              float* pm2, float* pmax, int n, int h, int w, int c, int tiles,
-              cudaStream_t s) {
+int conv_any(const void* xp, const void* wt, float* acc, float* pmean,
+             float* pm2, float* pmax, int n, int h, int w, int c, int tiles,
+             cudaStream_t s) {
   if constexpr (sizeof(TIn) == 1)
-    launch_conv_int8(static_cast<const int8_t*>(xp),
-                     static_cast<const int8_t*>(wt), acc, pmean, pm2, pmax, n,
-                     h, w, c, tiles, s);
+    return launch_conv_int8(static_cast<const int8_t*>(xp),
+                            static_cast<const int8_t*>(wt), acc, pmean, pm2,
+                            pmax, n, h, w, c, tiles, s);
   else
-    launch_conv<TIn>(static_cast<const TIn*>(xp), static_cast<const TIn*>(wt),
-                     acc, pmean, pm2, pmax, n, h, w, c, tiles, s);
+    return launch_conv<TIn>(static_cast<const TIn*>(xp),
+                            static_cast<const TIn*>(wt), acc, pmean, pm2, pmax,
+                            n, h, w, c, tiles, s);
 }
 
 // K7. The output is int8 codes when int8_k > 0, else TIn (for an int8 input
@@ -66,8 +67,8 @@ int conv3x3_in(const void* xp, const void* wt, void* out, float* acc,
                int h, int w, int c, int pad, int relu, float eps, float int8_k,
                cudaStream_t s) {
   const int hw = h * w, tiles = (hw + TILE_M - 1) / TILE_M;
-  conv_any<TIn>(xp, wt, acc, pmean, pm2, nullptr, n, h, w, c, tiles, s);
-  DUCOSY_CHECK_LAUNCH();
+  DUCOSY_TRY(conv_any<TIn>(xp, wt, acc, pmean, pm2, nullptr, n, h, w, c, tiles,
+                           s));
   finalize_stats<<<(n * c + 255) / 256, 256, 0, s>>>(pmean, pm2, mean, rstd,
                                                       n, tiles, c, hw, eps);
   DUCOSY_CHECK_LAUNCH();
@@ -91,8 +92,8 @@ int conv_block_tail(const void* tp, const T* x, const void* wt,
                     int c, int r, int pad, int x_pad, float eps,
                     cudaStream_t s) {
   const int tiles = (h * w + TILE_M - 1) / TILE_M;
-  conv_any<TIn>(tp, wt, acc, pmean, pm2, pmax, n, h, w, c, tiles, s);
-  DUCOSY_CHECK_LAUNCH();
+  DUCOSY_TRY(conv_any<TIn>(tp, wt, acc, pmean, pm2, pmax, n, h, w, c, tiles,
+                           s));
   return launch_tail<T, float>(acc, x, w1, w2, wsa, out, pmean, pm2, pmax,
                                mean, rstd, gate, n, h, w, c, r, tiles, pad,
                                x_pad, eps, s);
@@ -102,8 +103,8 @@ int conv_block_tail(const void* tp, const T* x, const void* wt,
 }  // namespace ducosy
 
 // K7: xp (n, h+2, w+2, c) -> out (n, h+2*pad, w+2*pad, c). in_kind 0: fp32
-// xp and wt; 1: bf16; 2: int8 xp with int8 wt. wt is (9*c, c) as (tap, cin,
-// cout) for fp32/bf16 and (9, c, c) as (tap, cout, cin) for int8. out has
+// xp and wt; 1: bf16; 2: int8 xp with int8 wt. wt is (9, c, c): (tap, cin,
+// cout) for fp32, (tap, cout, cin) for bf16 and int8. out has
 // xp's type, or int8 codes when int8_k = 255 / S > 0 (then ReLU is applied
 // whatever `relu` says; the wrapper refuses relu = 0). Scratch: acc
 // (n, h*w, c) fp32, pmean/pm2 (n, tiles, c), mean/rstd (n, c). Returns
@@ -128,8 +129,8 @@ extern "C" int ducosy_conv3x3_in(const void* xp, const void* wt, void* out,
 
 // K8: tp (n, h+2, w+2, c), x (n, h+2*x_pad, w+2*x_pad, c) -> out
 // (n, h+2*pad, w+2*pad, c). x and out are bf16 (is_bf16) or fp32; tp and wt
-// have that type with wt as (tap, cin, cout), or, with in_int8, tp is
-// shifted-grid int8 and wt int8 as (tap, cout, cin). w1 (c, r), w2 (r, c),
+// have that type with wt as in K7, or, with in_int8, tp is shifted-grid
+// int8 and wt int8 as (tap, cout, cin). w1 (c, r), w2 (r, c),
 // wsa (2*49) fp32. Scratch as K7 plus pmax (n, tiles, c) and gate (n, c).
 // Returns the first failing launch's error, or 0.
 extern "C" int ducosy_conv_block_tail(
@@ -152,4 +153,52 @@ extern "C" int ducosy_conv_block_tail(
   if (in_int8) DUCOSY_TAIL(float, int8_t);
   DUCOSY_TAIL(float, float);
 #undef DUCOSY_TAIL
+}
+
+// The bare conv launch K7, K8 and K1 share, for measuring the loop alone:
+// xp (n, h+2, w+2, c) and wt of in_kind as in K7 -> acc (n, h*w, c) fp32 and
+// the per-tile partials pmean, pm2, pmax (n, tiles, c).
+extern "C" int ducosy_conv3x3(const void* xp, const void* wt, float* acc,
+                              float* pmean, float* pm2, float* pmax, int n,
+                              int h, int w, int c, int in_kind, void* stream) {
+  using namespace ducosy;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int tiles = (h * w + TILE_M - 1) / TILE_M;
+  if (in_kind == 2)
+    return conv_any<int8_t>(xp, wt, acc, pmean, pm2, pmax, n, h, w, c, tiles, s);
+  if (in_kind == 1)
+    return conv_any<bf16>(xp, wt, acc, pmean, pm2, pmax, n, h, w, c, tiles, s);
+  return conv_any<float>(xp, wt, acc, pmean, pm2, pmax, n, h, w, c, tiles, s);
+}
+
+// The bf16 loop at c % 256 == 0 with parts compiled out, to time what each
+// costs: `parts` is a sum of PART_STORE = 1 (the accumulator's store),
+// PART_STATS = 2 (the statistics) and PART_MMA = 4 (the MMAs; without them
+// the ring's loads run alone). What a missing part would write is not
+// written. Other values of `parts` than the five below run the whole loop.
+extern "C" int ducosy_conv3x3_probe(const void* xp, const void* wt, float* acc,
+                                    float* pmean, float* pm2, float* pmax,
+                                    int n, int h, int w, int c, int parts,
+                                    void* stream) {
+  using namespace ducosy;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int tiles = (h * w + TILE_M - 1) / TILE_M;
+  const bf16* x = static_cast<const bf16*>(xp);
+  const bf16* k = static_cast<const bf16*>(wt);
+#define DUCOSY_PROBE(P)                                                     \
+  return launch_wgmma<bf16, 128, 256, P>(x, k, acc, pmean, pm2, pmax, n, h, \
+                                         w, c, tiles, s)
+  if (parts == 0) DUCOSY_PROBE(0);
+  if (parts == PART_MMA) DUCOSY_PROBE(PART_MMA);
+  if (parts == (PART_MMA | PART_STORE)) DUCOSY_PROBE(PART_MMA | PART_STORE);
+  if (parts == (PART_MMA | PART_STATS)) DUCOSY_PROBE(PART_MMA | PART_STATS);
+  DUCOSY_PROBE(PART_ALL);
+#undef DUCOSY_PROBE
+}
+
+// The tile geometry the wrappers size their scratch by: pixels per
+// statistics tile, and the granule C must be a multiple of.
+extern "C" void ducosy_conv_tile_geometry(int* tile_m, int* tile_n) {
+  *tile_m = ducosy::TILE_M;
+  *tile_n = ducosy::TILE_N;
 }

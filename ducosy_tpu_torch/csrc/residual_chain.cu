@@ -23,17 +23,22 @@
 // What bounds it: each 3x3 conv at the trunk shape (128x128 pixels,
 // 256 -> 256 channels) is 2*128*128*256*256*9 = 19.3 GFLOP per sample,
 // against ~17 MB of bf16 activations: compute-bound, so the convs run on
-// the tensor cores (WMMA bf16 m16n16k16 with fp32 accumulate; the fp32
-// parity mode uses exact FMA on the CUDA cores; K1q's conv2 uses
-// mma.sync m16n8k32 s8 x s8 -> s32, twice the bf16 rate on paper, and
-// reads half the bytes of t).
+// the tensor cores through wgmma (bf16 m64n256k16 with fp32 accumulate;
+// K1q's conv2 s8 x s8 -> s32 m64n256k32, twice the bf16 rate on paper, on
+// half the bytes of t). The fp32 parity mode uses exact FMA on the CUDA
+// cores. Below the tensor cores the conv is bound by what an SM can pull
+// from L2, which is why its tile is 128 pixels x 256 channels (see
+// conv3x3.cuh). The other launches of a block move ~1.5 GB at N = 16 and are
+// bound by bytes.
 //
 // Design: the TPU kernel keeps one sample's whole 130x130x256 carry in
 // VMEM (8.6 MB); a Hopper block has at most 227 KB of shared memory. So a
 // block is a short sequence of launches, and every whole-image reduction
 // is split into per-tile partials plus a later apply step:
-//   1. conv1: implicit-GEMM tile of 128 pixels x 64 output channels; the
-//      epilogue writes the fp32 accumulator and per-tile (mean, M2);
+//   1. conv1: implicit-GEMM tile of 128 pixels x up to 256 output channels,
+//      wgmma fed from a four-stage cp.async ring of 128-byte swizzled
+//      shared memory (conv3x3.cuh); the epilogue writes the fp32
+//      accumulator and per-tile (mean, M2) from the registers;
 //   2. finalize: Chan-merge the tiles -> per-(n, c) mean, 1/std;
 //   3. apply: IN + ReLU + reflect-pad 1 -> t (io dtype; int8 for K1q);
 //   4. conv2 on t, epilogue also emits the per-tile channel max (K1q:
@@ -47,11 +52,11 @@
 //      avg | max, as at conv_in.py:428-430), sigmoid, adds the skip from
 //      the carry's interior and writes the reflect-padded output.
 //   Steps 5 and 6 live in cbam_tail.cuh, shared with K4 and K5.
-// What this simple design gives up: the conv accumulator and t round-trip
-// device memory between launches (the TPU kernel never leaves VMEM), the
-// conv main loop has no cp.async/TMA pipelining and uses mma.sync-class
-// WMMA rather than wgmma, and the tail re-reads the halo. Later work:
-// wgmma + TMA with persistent tiles, and fusing apply into conv2's loads.
+// What this design still gives up: the conv accumulator and t round-trip
+// device memory between launches (the TPU kernel never leaves VMEM), and the
+// tail re-reads the halo. Tried before this loop and dropped: WMMA / mma.sync
+// tiles of 128 x 64 on one synchronously filled buffer (a ninth of the
+// card's bf16 rate). Later work: fusing apply into conv2's operand loads.
 #include "cbam_tail.cuh"
 #include "conv3x3.cuh"
 
@@ -66,8 +71,8 @@ int residual_block(const T* xp, const T* wa, const void* wb, const float* w1,
                    int c, int r, int pad, float eps, float int8_k,
                    cudaStream_t s) {
   const int hw = h * w, tiles = (hw + TILE_M - 1) / TILE_M;
-  launch_conv<T>(xp, wa, acc, pmean, pm2, nullptr, n, h, w, c, tiles, s);
-  DUCOSY_CHECK_LAUNCH();
+  DUCOSY_TRY(launch_conv<T>(xp, wa, acc, pmean, pm2, nullptr, n, h, w, c,
+                            tiles, s));
   finalize_stats<<<(n * c + 255) / 256, 256, 0, s>>>(pmean, pm2, mean, rstd,
                                                       n, tiles, c, hw, eps);
   DUCOSY_CHECK_LAUNCH();
@@ -76,17 +81,17 @@ int residual_block(const T* xp, const T* wa, const void* wb, const float* w1,
     norm_apply_int8<float, float><<<agrid, APPLY_THREADS, 0, s>>>(
         acc, mean, rstd, static_cast<int8_t*>(tp), h, w, c, 1, int8_k);
     DUCOSY_CHECK_LAUNCH();
-    launch_conv_int8(static_cast<const int8_t*>(tp),
-                     static_cast<const int8_t*>(wb), acc, pmean, pm2, pmax, n,
-                     h, w, c, tiles, s);
+    DUCOSY_TRY(launch_conv_int8(static_cast<const int8_t*>(tp),
+                                static_cast<const int8_t*>(wb), acc, pmean,
+                                pm2, pmax, n, h, w, c, tiles, s));
   } else {
     norm_apply<float, T><<<agrid, APPLY_THREADS, 0, s>>>(
         acc, mean, rstd, static_cast<T*>(tp), h, w, c, 1, 1);
     DUCOSY_CHECK_LAUNCH();
-    launch_conv<T>(static_cast<const T*>(tp), static_cast<const T*>(wb), acc,
-                   pmean, pm2, pmax, n, h, w, c, tiles, s);
+    DUCOSY_TRY(launch_conv<T>(static_cast<const T*>(tp),
+                              static_cast<const T*>(wb), acc, pmean, pm2, pmax,
+                              n, h, w, c, tiles, s));
   }
-  DUCOSY_CHECK_LAUNCH();
   return launch_tail<T, float>(acc, xp, w1, w2, wsa, out, pmean, pm2, pmax,
                                mean, rstd, gate, n, h, w, c, r, tiles, pad, 1,
                                eps, s);
@@ -96,9 +101,9 @@ int residual_block(const T* xp, const T* wa, const void* wb, const float* w1,
 }  // namespace ducosy
 
 // One residual block: xp (n, h+2, w+2, c) -> out (n, h+2*pad, w+2*pad, c).
-// wa (9*c, c) io dtype; wb (9*c, c) io dtype as (tap, cin, cout), or, when
-// int8_k = 255 / S > 0 (K1q), int8 as (tap, cout, cin); w1 (c, r),
-// w2 (r, c), wsa (2*49) fp32. Scratch: acc (n, h*w, c) fp32, tp like xp
+// wa and wb (9, c, c) in the io dtype: (tap, cout, cin) for bf16, (tap, cin,
+// cout) for fp32; when int8_k = 255 / S > 0 (K1q) wb is int8 as (tap, cout,
+// cin). w1 (c, r), w2 (r, c), wsa (2*49) fp32. Scratch: acc (n, h*w, c) fp32, tp like xp
 // (int8 for K1q), pmean/pm2/pmax (n, tiles, c), mean/rstd/gate (n, c).
 // Returns cudaGetLastError() of the first failing launch, or 0. Launches
 // on `stream` and does not synchronize.

@@ -9,14 +9,15 @@
 //
 // What bounds it: 2 * M * K * N * taps operations on 2 * (M + N) * K
 // bytes read from L2 per repeat: compute-bound. The kernels are the main
-// loops of K1's convs with the taps' shifted windows replaced by one
-// matrix, so their rates tell whether K1q's int8 conv2 pays on this card:
-//   int8  mma.sync m16n8k32 s8 x s8 -> s32, the tiling and the warp step
-//         (warp_mma_s8_step, common.cuh) of conv3x3_int8
-//         (residual_chain.cu): 128 x 64 tiles, K steps of 64 bytes;
-//   bf16  WMMA m16n16k16 with fp32 accumulate, the tiling of conv3x3_bf16.
-// Neither pipelines its loads (no cp.async/TMA) nor uses wgmma, like the
-// conv kernels they stand for.
+// loops K1's convs first had, with the taps' shifted windows replaced by
+// one matrix, so their rates tell what int8 gains over bf16 on the
+// mma.sync path of this card:
+//   int8  mma.sync m16n8k32 s8 x s8 -> s32 (warp_mma_s8_step, common.cuh):
+//         128 x 64 tiles, K steps of 64 bytes;
+//   bf16  WMMA m16n16k16 with fp32 accumulate, the same tiles.
+// Neither pipelines its loads (no cp.async/TMA) nor uses wgmma; the conv
+// kernels since do both (conv3x3.cuh), and the probe stays a probe of
+// mma.sync.
 #include <mma.h>
 
 #include "common.cuh"

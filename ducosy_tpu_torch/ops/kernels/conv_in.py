@@ -19,7 +19,9 @@ whose mean subtraction cancels a per-channel constant exactly.
 The kernels are CUDA C++ (``csrc/conv_in.cu``), built from the launches K1
 uses (``csrc/conv3x3.cuh``, ``common.cuh``, ``cbam_tail.cuh``). Their
 scratch (the fp32 accumulator and the statistics partials) can be made once
-with ``make_scratch`` and passed to every call of a trunk.
+with ``make_scratch`` and passed to every call of a trunk. ``conv3x3`` is
+the conv launch they and K1 share, alone: the fp32 accumulator of the bf16
+(wgmma), int8 (wgmma, exact int32) or fp32 (exact FMA) loop.
 
 The ``*_plain`` functions are the TPU package's XLA compositions
 (``_xla_conv_in``, ``_xla_conv_tail``, conv_in.py:501-536) in plain PyTorch,
@@ -61,7 +63,7 @@ from ducosy_tpu_torch.ops.quant import (
 )
 
 TILE_M = 128   # pixels per conv output / statistics tile (csrc/common.cuh)
-TILE_N = 64    # output channels per conv tile; C must be a multiple
+TILE_N = 64    # channel granule of the tiles (csrc/common.cuh): C a multiple
 _FLOAT = (torch.float32, torch.bfloat16)
 
 
@@ -119,6 +121,20 @@ def conv_block_tail_plain(tp, x, w, w1, w2, wsa, *, pad: int = 1,
     return block_tail_plain(y, x, w1, w2, wsa, pad=pad, x_pad=x_pad, eps=eps)
 
 
+def conv3x3_plain(xp, w) -> torch.Tensor:
+    """Plain PyTorch ``conv3x3``: the fp32 3x3 VALID conv of the pre-padded
+    NHWC xp with HWIO w, (N, H, W, C) fp32. Float operands are rounded to
+    xp's dtype and accumulated in fp32 (the conv of ``_xla_conv_in``,
+    conv_in.py:501-510, before its IN); int8 xp with int8 w is the exact
+    integer conv."""
+    if xp.dtype == torch.int8:
+        if w.dtype != torch.int8:
+            raise TypeError("conv3x3: an int8 input requires int8 weights")
+        return int_conv(xp, w).to(torch.float32)
+    return conv2d(xp.to(torch.float32),
+                  hwio_to_oihw(w).to(xp.dtype).to(torch.float32))
+
+
 class Scratch(NamedTuple):
     """Device scratch of one K7 or K8 call on (n, h, w, c)."""
     acc: torch.Tensor        # (n, h*w, c) fp32 conv accumulator
@@ -144,15 +160,26 @@ def _lib() -> ctypes.CDLL:
     dll.ducosy_conv3x3_in.argtypes = [p] * 8 + [i] * 6 + [f, f, i, p]
     dll.ducosy_conv_block_tail.restype = i
     dll.ducosy_conv_block_tail.argtypes = [p] * 14 + [i] * 7 + [f, i, i, p]
+    dll.ducosy_conv3x3.restype = i
+    dll.ducosy_conv3x3.argtypes = [p] * 6 + [i] * 5 + [p]
+    dll.ducosy_conv3x3_probe.restype = i
+    dll.ducosy_conv3x3_probe.argtypes = [p] * 6 + [i] * 5 + [p]
+    dll.ducosy_conv_tile_geometry.restype = None
+    dll.ducosy_conv_tile_geometry.argtypes = [ctypes.POINTER(i)] * 2
     return dll
+
+
+def tile_geometry() -> tuple[int, int]:
+    """(TILE_M, TILE_N) as the built library has them; builds it if needed."""
+    m, n = ctypes.c_int(), ctypes.c_int()
+    _lib().ducosy_conv_tile_geometry(ctypes.byref(m), ctypes.byref(n))
+    return m.value, n.value
 
 
 def _check_input(what, xp, w, pad) -> None:
     """The conv input xp (N, H+2, W+2, C) and its weights w, as the kernels
-    take them: CUDA, contiguous, C -> C channels, int8 with int8."""
-    if xp.device.type != "cuda":
-        raise ValueError(f"{what} kernel: input on {xp.device}; the kernel "
-                         "takes CUDA tensors (CPU runs the plain path)")
+    take them: contiguous, C -> C channels, int8 with int8, on a CUDA device
+    (checked last: the rest can be held without a card)."""
     if xp.dtype not in _FLOAT + (torch.int8,):
         raise TypeError(f"{what} kernel: dtype {xp.dtype} (float32, bfloat16 "
                         "or int8 only)")
@@ -172,6 +199,9 @@ def _check_input(what, xp, w, pad) -> None:
     if min(hp, wp) < 4 or pad not in (0, 1):
         raise ValueError(f"{what} kernel: input {hp}x{wp}, pad={pad} (needs "
                          "H, W >= 2 inside the pad, pad 0 or 1)")
+    if xp.device.type != "cuda":
+        raise ValueError(f"{what} kernel: input on {xp.device}; the kernel "
+                         "takes CUDA tensors (CPU runs the plain path)")
 
 
 def _check_scratch(what, scratch, n, h, w, c, dev) -> Scratch:
@@ -184,13 +214,79 @@ def _check_scratch(what, scratch, n, h, w, c, dev) -> Scratch:
     return scratch
 
 
-def _kernel_weights(w, dt) -> torch.Tensor:
-    """w in the conv kernels' layouts: (tap, Cin, Cout) in the io dtype, or
-    int8 as (tap, Cout, Cin)."""
+def kernel_weights(w, dt) -> torch.Tensor:
+    """HWIO w (..., 3, 3, Cin, Cout) in the conv kernels' layouts, (..., 9,
+    C, C): the tensor-core loop reads both operands with the input channels
+    contiguous, so bf16 (and int8, whatever ``dt``) is (tap, Cout, Cin); the
+    fp32 FMA loop reads (tap, Cin, Cout)."""
     c = w.shape[-1]
+    w = w.reshape(*w.shape[:-4], 9, c, c)
     if w.dtype == torch.int8:
-        return w.reshape(9, c, c).transpose(1, 2).contiguous()
-    return w.reshape(9 * c, c).to(dt).contiguous()
+        return w.transpose(-1, -2).contiguous()
+    if dt == torch.bfloat16:
+        return w.to(dt).transpose(-1, -2).contiguous()
+    return w.to(dt).contiguous()
+
+
+_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def conv3x3(xp, w, *, scratch: Scratch | None = None) -> Scratch:
+    """The 3x3 VALID conv of the pre-padded xp (N, H+2, W+2, C) with HWIO w
+    alone, as K1, K7 and K8 launch it: returns the scratch whose ``acc`` holds
+    the fp32 accumulator (N, H*W, C) and whose ``partials`` hold the per-tile
+    (mean, M2, max). The kernel for a CUDA tensor; for a CPU tensor the plain
+    version's accumulator with partials computed tile by tile.
+    ``conv3x3.launches`` counts every launch of the shared conv kernel, those
+    inside K1, K7 and K8 too."""
+    if xp.device.type == "cpu":
+        y = conv3x3_plain(xp, w)
+        n, h, wd, c = y.shape
+        sc = make_scratch(n, h, wd, c, xp.device)
+        sc.acc.copy_(y.reshape(n, h * wd, c))
+        for t, rows in enumerate(sc.acc.split(TILE_M, dim=1)):
+            mean = rows.mean(dim=1)
+            sc.partials[0][:, t] = mean
+            sc.partials[1][:, t] = (rows - mean[:, None]).square().sum(dim=1)
+            sc.partials[2][:, t] = rows.amax(dim=1)
+        return sc
+    sc = _launch_conv("conv3x3", xp, w, scratch, _KIND[xp.dtype])
+    conv3x3.launches += 1
+    return sc
+
+
+conv3x3.launches = 0
+
+
+def _launch_conv(what, xp, w, scratch, last: int) -> Scratch:
+    """Validate and launch the entry point ``ducosy_<what>`` of the bare
+    conv; ``last`` is its last integer argument."""
+    _check_input(what, xp, w, 1)
+    n, hp, wp, c = xp.shape
+    sc = _check_scratch(what, scratch, n, hp - 2, wp - 2, c, xp.device)
+    wk = kernel_weights(w, xp.dtype)
+    dll = _lib()
+    with torch.cuda.device(xp.device):
+        status = getattr(dll, f"ducosy_{what}")(
+            xp.data_ptr(), wk.data_ptr(), sc.acc.data_ptr(),
+            *(t.data_ptr() for t in sc.partials), n, hp - 2, wp - 2, c, last,
+            torch.cuda.current_stream(xp.device).cuda_stream)
+    _build.check(dll, status, f"{what} kernel launch")
+    return sc
+
+
+def conv3x3_probe(xp, w, parts: int, scratch: Scratch) -> None:
+    """Timing probe of the bf16 conv loop with parts compiled out: ``parts``
+    sums 1 (the accumulator's store), 2 (the statistics) and 4 (the MMAs;
+    without them the ring's loads run alone); 7 is ``conv3x3``. bf16 CUDA xp
+    with C a multiple of 256; what a missing part would write is not written
+    to ``scratch``. Counts no launch."""
+    if xp.dtype != torch.bfloat16 or xp.shape[-1] % 256 or \
+            parts not in (0, 4, 5, 6, 7):
+        raise ValueError(f"conv3x3_probe: {xp.dtype}, C={xp.shape[-1]}, "
+                         f"parts={parts} (bfloat16, C a multiple of 256, "
+                         "parts 0, 4, 5, 6 or 7)")
+    _launch_conv("conv3x3_probe", xp, w, scratch, parts)
 
 
 def launch_conv3x3_in(xp, w, *, relu, pad, int8_scale, eps, scratch):
@@ -204,10 +300,9 @@ def launch_conv3x3_in(xp, w, *, relu, pad, int8_scale, eps, scratch):
     h, wd = hp - 2, wp - 2
     dev = xp.device
     sc = _check_scratch("conv3x3_in", scratch, n, h, wd, c, dev)
-    wk = _kernel_weights(w, xp.dtype)
+    wk = kernel_weights(w, xp.dtype)
     out = torch.empty((n, h + 2 * pad, wd + 2 * pad, c), device=dev,
                       dtype=xp.dtype if int8_scale is None else torch.int8)
-    kind = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[xp.dtype]
     dll = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -216,9 +311,10 @@ def launch_conv3x3_in(xp, w, *, relu, pad, int8_scale, eps, scratch):
             sc.partials[0].data_ptr(), sc.partials[1].data_ptr(),
             sc.stats[0].data_ptr(), sc.stats[1].data_ptr(), n, h, wd, c, pad,
             int(relu), float(eps),
-            0.0 if int8_scale is None else INT8_GRID / int8_scale, kind,
-            stream)
+            0.0 if int8_scale is None else INT8_GRID / int8_scale,
+            _KIND[xp.dtype], stream)
     _build.check(dll, status, "conv3x3_in kernel launch")
+    conv3x3.launches += 1
     return out
 
 
@@ -270,7 +366,7 @@ def launch_conv_block_tail(tp, x, w, w1, w2, wsa, *, pad, x_pad, in_int8,
     if not 0 < r <= c:
         raise ValueError(f"conv_block_tail kernel: R={r} (0 < R <= C={c})")
     sc = _check_scratch("conv_block_tail", scratch, n, h, wd, c, dev)
-    wk = _kernel_weights(w, dt)
+    wk = kernel_weights(w, dt)
     w1f = w1.to(torch.float32).contiguous()
     w2f = w2.to(torch.float32).contiguous()
     # spatial-gate taps as (avg taps | max taps), tap = di * 7 + dj
@@ -287,6 +383,7 @@ def launch_conv_block_tail(tp, x, w, w1, w2, wsa, *, pad, x_pad, in_int8,
             *(t.data_ptr() for t in sc.stats), n, h, wd, c, r, pad, x_pad,
             float(eps), int(in_int8), int(dt == torch.bfloat16), stream)
     _build.check(dll, status, "conv_block_tail kernel launch")
+    conv3x3.launches += 1
     return out
 
 

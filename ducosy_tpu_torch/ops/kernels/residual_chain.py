@@ -42,8 +42,10 @@ from ducosy_tpu_torch.ops.kernels.block_tail import SA_KERNEL
 from ducosy_tpu_torch.ops.kernels.conv_in import (
     TILE_M,
     TILE_N,
+    conv3x3,
     conv3x3_in_plain,
     conv_block_tail_plain,
+    kernel_weights,
 )
 from ducosy_tpu_torch.ops.quant import INT8_GRID, INT8_NORM_SCALE
 
@@ -97,9 +99,6 @@ def _lib() -> ctypes.CDLL:
 
 
 def _validate(xp, was, wbs, w1s, w2s, wsas, pad, quant) -> None:
-    if xp.device.type != "cuda":
-        raise ValueError(f"residual_chain kernel: carry on {xp.device}; the "
-                         "kernel takes CUDA tensors (CPU runs the plain path)")
     if xp.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"residual_chain kernel: dtype {xp.dtype} (float32 "
                         "or bfloat16 only)")
@@ -126,6 +125,9 @@ def _validate(xp, was, wbs, w1s, w2s, wsas, pad, quant) -> None:
     if min(hp, wp) < 4 or pad not in (0, 1):
         raise ValueError(f"residual_chain kernel: carry {hp}x{wp}, pad={pad} "
                          "(needs H, W >= 2 inside the pad, pad 0 or 1)")
+    if xp.device.type != "cuda":
+        raise ValueError(f"residual_chain kernel: carry on {xp.device}; the "
+                         "kernel takes CUDA tensors (CPU runs the plain path)")
 
 
 def residual_chain(xp, was, wbs, w1s, w2s, wsas, *, pad: int = 1,
@@ -146,14 +148,10 @@ def residual_chain(xp, was, wbs, w1s, w2s, wsas, *, pad: int = 1,
     dt, dev = xp.dtype, xp.device
     tiles = -(-h * w // TILE_M)
     f32 = dict(dtype=torch.float32, device=dev)
-    # weights in the kernel's layouts: conv1 (tap, Cin, Cout) in the io
-    # dtype; conv2 the same, or int8 (tap, Cout, Cin) for K1q; spatial gate
-    # (avg taps | max taps); MLP in fp32
-    wa = was.reshape(k, 9 * c, c).to(dt).contiguous()
-    if quant:
-        wb = wbs.reshape(k, 9, c, c).transpose(2, 3).contiguous()
-    else:
-        wb = wbs.reshape(k, 9 * c, c).to(dt).contiguous()
+    # weights in the kernel's layouts: the convs' as kernel_weights lays
+    # them out (bf16 and K1q's int8 conv2 (tap, Cout, Cin), fp32 (tap, Cin,
+    # Cout)); spatial gate (avg taps | max taps); MLP in fp32
+    wa, wb = kernel_weights(was, dt), kernel_weights(wbs, dt)
     w1 = w1s.to(torch.float32).contiguous()
     w2 = w2s.to(torch.float32).contiguous()
     wsa = wsas.reshape(k, SA_KERNEL * SA_KERNEL, 2).transpose(1, 2) \
@@ -187,6 +185,7 @@ def residual_chain(xp, was, wbs, w1s, w2s, wsas, *, pad: int = 1,
                 n, h, w, c, r, p, float(eps), int8_k,
                 int(dt == torch.bfloat16), stream)
             _build.check(dll, status, f"residual_chain block {j} launch")
+            conv3x3.launches += 2            # conv1 and conv2 of the block
             xp = out
     residual_chain.launches += 1
     return xp
