@@ -51,22 +51,36 @@ drives the serving path the way a user does, at full model width:
   3m. K7 (conv3x3_in) and K8 (conv_block_tail), the mega trunk's kernels,
      against their plain versions on (16, 130, 130, 256), fp32 and bf16: K7
      pad 1 with and without the int8 write (code agreement) and once on an
-     int8 input; K8 pad 1 and 0, x_pad 1, with and without int8 taps;
-  3r. K7 and K8 once more at ragged shapes, carries (2, 50, 70, 128),
-     (2, 50, 70, 192) and (1, 20, 24, 512): the pixels do not fill the last
-     tile, and the widths take the conv loop's 128- and 64-channel tiles,
-     the int8 loop's 64-byte rows, and two 256-channel tiles side by side;
-  3c. the conv loop alone (conv3x3, the launch K1, K6, K7 and K8 share) on
-     (16, 130, 130, 256): the bf16 loop's fp32 accumulator and per-tile
-     partials against the fp32 conv of the same bf16 values, the int8 loop
-     exact, TFLOP/s and TOP/s, beside one F.conv2d (bf16, channels_last);
+     int8 input; K8 pad 1 and 0, x_pad 1, with and without int8 taps. Every
+     case prints the route it took (resident: one cooperative launch with
+     the accumulator held in registers; tiled: the accumulator through
+     device memory) and fails if that is not the route its shape gives; at
+     this shape the bf16 and int8 cases must run resident on a card that
+     holds a sample's 128 blocks, and are timed beside the tiled launches
+     they replace in alternating rounds (phases 3 and 3q likewise for K1
+     and K1q);
+  3r. K7 and K8 once more at ragged shapes, interiors (2, 50, 70, 128),
+     (2, 50, 70, 192), (1, 20, 24, 512) and (1, 142, 130, 256): the pixels
+     do not fill the last tile, the widths take the conv loop's 128- and
+     64-channel tiles, the int8 loop's 64-byte rows, and two 256-channel
+     tiles side by side (K8 tiled beside K7 resident), and the last has
+     more tiles than the card has SMs, so both kernels run tiled there;
+  3c. the conv loop alone (conv3x3, the tiled launch K1, K6, K7 and K8
+     share) on (16, 130, 130, 256): the bf16 loop's fp32 accumulator and
+     per-tile partials against the fp32 conv of the same bf16 values, the
+     int8 loop exact, TFLOP/s and TOP/s, beside one F.conv2d (bf16,
+     channels_last); the loop and the resident K7 and K8 kernels by parts
+     (the loop, the barriers and merges, the epilogue compiled out);
   3p. the P1/P2 prototypes (ops/kernels/proto_conv_in.py): each wrapper
      against its plain version at the shapes its bench runs, (8 and 32, 130,
      130, 256) bf16 and n = 8 fp32; then the script's parity and its A/B
      bench at n = 8 and 32;
   4m. the engine at trunk="mega" (bf16, the phase-4 generators and phantom):
      exact K7, K8 and K2 launch counts, fp32 mega against fp32 plain,
-     slices/s in rounds that alternate mega, chain and plain, then
+     slices/s in rounds that alternate mega, mega on the tiled route, chain
+     and plain (a routed rate more than 3% below its tiled reading fails;
+     phases 4 and 4q likewise), a profile of one patient that fails if a
+     kernel of the tiled route's light passes ran under a resident trunk, then
      quant="trunk" and "full" under mega with counts, slices/s beside the
      chain trunk's and both fidelity taps against the bf16 engine;
   8. the generate CLI serves phase 7's trained 3-channel SOFT_TISSUE
@@ -82,6 +96,7 @@ Imports nothing of JAX and nothing of the JAX package (ducosy_tpu).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -179,7 +194,8 @@ K8_BF16_MEAN_TOL = K1_BF16_MEAN_TOL
 #  int8: the int32 sums are exact, and both sides convert them to fp32 the
 #    same way: equal.
 CONV_TOL = (1e-3, 1e-2)
-RAGGED_SHAPES = ((2, 50, 70, 128), (2, 50, 70, 192), (1, 20, 24, 512))
+RAGGED_SHAPES = ((2, 50, 70, 128), (2, 50, 70, 192), (1, 20, 24, 512),
+                 (1, 142, 130, 256))     # the last: 140 tiles, more than SMs
 
 # Published dense peaks of one H100 SXM (NVIDIA's data sheet): the bound of
 # a kernel is the larger of its operations over the peak of their type and
@@ -284,6 +300,40 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+@contextlib.contextmanager
+def tiled_route(k1, k7):
+    """For measurement only: inside, the card is taken to hold no
+    co-resident block, so K7, K8 and K1 run the tiled launches that the
+    resident kernels replace on this card."""
+    saved = k7.resident_blocks, k1.resident_blocks
+    k7.resident_blocks = k1.resident_blocks = lambda device: 0
+    try:
+        yield
+    finally:
+        k7.resident_blocks, k1.resident_blocks = saved
+
+
+def route_rounds(k1, k7, fn, iters: int, rounds: int = 3) -> dict:
+    """Median ms of ``fn`` on the route its shape takes and on the tiled
+    route, in rounds that alternate the two."""
+    ms = {"routed": [], "tiled": []}
+    for _ in range(rounds):
+        ms["routed"].append(cuda_ms(fn, iters))
+        with tiled_route(k1, k7):
+            ms["tiled"].append(cuda_ms(fn, iters))
+    return {k: statistics.median(v) for k, v in ms.items()}
+
+
+def expect_route(k7, what: str, took: str, shape, dtype, dev, *,
+                 tail: bool = False) -> str:
+    """The route a call took must be the one its shape gives; returns it."""
+    n, h, w, c = shape
+    want = k7.conv_route(h, w, c, dtype, k7.resident_blocks(dev), tail=tail)
+    if took != want:
+        fail(f"{what}: took the {took} route, its shape gives {want}")
+    return took
+
+
 def compare(got, ref, atol: float, rtol: float):
     import torch
 
@@ -349,6 +399,8 @@ def check_residual_chain(k1, dev, records):
     x = torch.randn((n, c, hw, hw), generator=gen, device=dev)
     xp = F.pad(x, (1, 1, 1, 1), mode="reflect").permute(0, 2, 3, 1) \
         .contiguous()
+    from ducosy_tpu_torch.ops.kernels import conv_in as k7
+
     kmax = 3
     weights = (
         torch.randn((kmax, 3, 3, c, c), generator=gen, device=dev) * 0.02,
@@ -370,22 +422,45 @@ def check_residual_chain(k1, dev, records):
                 ok, emax, emean = compare(got, ref, atol, rtol)
                 if dtype == torch.bfloat16 and emean > K1_BF16_MEAN_TOL:
                     ok = False
-                line = (f"K1 k={k} pad={pad} {tuple(carry.shape)} {dname}: "
-                        f"max|d|={emax:.3e} mean|d|={emean:.3e} (atol {atol},"
-                        f" rtol {rtol})")
+                route = chain_route(k1, k7, f"K1 {dname}", K1_SHAPE, dtype,
+                                    dev)
+                line = (f"K1 k={k} pad={pad} {tuple(carry.shape)} {dname} "
+                        f"[{route}]: max|d|={emax:.3e} mean|d|={emean:.3e} "
+                        f"(atol {atol}, rtol {rtol})")
                 if pad == 1 or k == 3:
                     ms = cuda_ms(lambda: k1.residual_chain(carry, *ws,
                                                            pad=pad), 3)
                     plain_ms = cuda_ms(lambda: k1.residual_chain_plain(
                         carry, *ws, pad=pad), 3)
                     line += f" kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
-                    records[("k1", k, pad, dname)] = dict(
+                    rec = records[("k1", k, pad, dname)] = dict(
                         max_abs_err=emax, ms=ms, plain_ms=plain_ms)
+                    if route == "resident" and pad == 1:
+                        rec["rounds"] = rr = route_rounds(
+                            k1, k7, lambda: k1.residual_chain(carry, *ws,
+                                                              pad=pad), 3)
+                        line += (f"; alternating rounds: resident "
+                                 f"{rr['routed']:.3f} ms, tiled "
+                                 f"{rr['tiled']:.3f} ms")
                 log(line + (" ok" if ok else " FAIL"))
                 if not ok:
                     failures.append(f"K1 k={k} pad={pad} {dname}")
     if failures:
         fail(f"kernel disagrees with its plain version: {failures}")
+
+
+def chain_route(k1, k7, what: str, shape, dtype, dev) -> str:
+    """The route the last K1 call took ("mixed": K7's half resident, K8's
+    tiled), checked against what its shape gives each half."""
+    n, h, w, c = shape
+    blocks = k7.resident_blocks(dev)
+    halves = {k7.conv_route(h, w, c, dtype, blocks, tail=t) for t in (False,
+                                                                      True)}
+    want = halves.pop() if len(halves) == 1 else "mixed"
+    if k1.residual_chain.route != want:
+        fail(f"{what}: took the {k1.residual_chain.route} route, its shape "
+             f"gives {want}")
+    return want
 
 
 def chest_phantom(z: int, size: int, seed: int,
@@ -455,12 +530,19 @@ def run_engine_phase(k1, k2, dev, st, lung, records):
         fail(f"engine output {out_fast.dtype} {out_fast.shape}")
     records["launches"] = launches
 
+    from ducosy_tpu_torch.ops.kernels import conv_in as k7
+
     plain = engine(torch.bfloat16, "plain")
     run(plain)
-    rounds = {"chain": [], "plain": []}
-    for _ in range(3):                        # alternate the two paths
-        for name, eng in (("chain", fast), ("plain", plain)):
-            rounds[name].append(SLICES / run(eng)[1])
+    with tiled_route(k1, k7):
+        run(fast)                             # warm the tiled route
+    rounds = {"chain": [], "chain, tiled route": [], "plain": []}
+    for _ in range(3):                        # alternate the paths
+        for name, eng in (("chain", fast), ("chain, tiled route", fast),
+                          ("plain", plain)):
+            with tiled_route(k1, k7) if "tiled" in name else \
+                    contextlib.nullcontext():
+                rounds[name].append(SLICES / run(eng)[1])
     for name, rates in rounds.items():
         log(f"engine bf16 {name}: slices/s median "
             f"{statistics.median(rates):.2f} rounds "
@@ -468,6 +550,7 @@ def run_engine_phase(k1, k2, dev, st, lung, records):
             f" incl. upload, postprocess, download)")
     records["slices_per_s"] = {k: statistics.median(v)
                                for k, v in rounds.items()}
+    check_not_slower("bf16 chain", records["slices_per_s"], "chain")
     del plain
 
     out32, _ = run(engine(torch.float32, "chain"))
@@ -481,6 +564,22 @@ def run_engine_phase(k1, k2, dev, st, lung, records):
     dhu = np.abs(out_fast.astype(np.float64) - ref32.astype(np.float64))
     log(f"engine bf16 chain vs fp32 plain: |dHU| mean {dhu.mean():.4f} p99 "
         f"{np.percentile(dhu, 99):.4f} max {dhu.max():.1f}")
+
+
+# a serving rate on the routed path may read this far below the same run's
+# tiled-route reading (rounds spread by ~1%; a first round can read 4% low)
+RATE_SLACK = 0.97
+
+
+def check_not_slower(label: str, rates: dict, name: str) -> None:
+    """Fail if the median slices/s of ``name`` is below RATE_SLACK of the
+    same engine's reading on the tiled route."""
+    routed, tiled = rates[name], rates[f"{name}, tiled route"]
+    log(f"engine {label}: {name} {routed:.2f} slices/s, on the tiled route "
+        f"{tiled:.2f} ({100 * (routed / tiled - 1):+.1f}%)")
+    if routed < RATE_SLACK * tiled:
+        fail(f"engine {label}: {routed:.2f} slices/s on the routed path, "
+             f"{tiled:.2f} on the tiled route")
 
 
 def code_agreement(got, ref):
@@ -513,6 +612,8 @@ def check_k1q(k1, dev, records):
             torch.randn((3, 7, 7, 2, 1), generator=gen, device=dev) * 0.1)
     wq, ws = (torch.stack(t) for t in zip(*(quantize_weights_int8(w)
                                             for w in wbs)))
+    from ducosy_tpu_torch.ops.kernels import conv_in as k7
+
     failures = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype)[6:]
@@ -529,9 +630,12 @@ def check_k1q(k1, dev, records):
                 atol, rtol = K1Q_TOL[tname]
                 ok, emax, emean = compare(got, ref, atol, rtol)
                 ok = ok and emean <= K1Q_MEAN_TOL[tname]
-                line = (f"K1q k={k} pad={pad} {tuple(carry.shape)} {dname}: "
-                        f"max|d|={emax:.3e} mean|d|={emean:.3e} (atol {atol},"
-                        f" rtol {rtol}, mean {K1Q_MEAN_TOL[tname]})")
+                route = chain_route(k1, k7, f"K1q {dname}", K1_SHAPE, dtype,
+                                    dev)
+                line = (f"K1q k={k} pad={pad} {tuple(carry.shape)} {dname} "
+                        f"[{route}]: max|d|={emax:.3e} mean|d|={emean:.3e} "
+                        f"(atol {atol}, rtol {rtol}, mean "
+                        f"{K1Q_MEAN_TOL[tname]})")
                 rec = dict(max_abs_err=emax)
                 if k == 1:
                     share, dmax = code_agreement(
@@ -549,6 +653,12 @@ def check_k1q(k1, dev, records):
                     line += (f" K1q {ms:.3f} ms, K1 (same dtype, no quant) "
                              f"{bf_ms:.3f} ms, plain {plain_ms:.3f} ms")
                     rec.update(ms=ms, plain_ms=plain_ms, k1_ms=bf_ms)
+                    if route == "resident" and pad == 1:
+                        rec["rounds"] = rr = route_rounds(
+                            k1, k7, lambda: k1.residual_chain(*args, **kw), 3)
+                        line += (f"; alternating rounds: resident "
+                                 f"{rr['routed']:.3f} ms, tiled "
+                                 f"{rr['tiled']:.3f} ms")
                 records[("k1q", k, pad, dname)] = rec
                 log(line + (" ok" if ok else " FAIL"))
                 if not ok:
@@ -676,19 +786,37 @@ def check_conv_in(k7, dev, records, shape=K1_SHAPE):
     tail = (torch.randn((c, r), generator=gen, device=dev) * 0.1,
             torch.randn((r, c), generator=gen, device=dev) * 0.1,
             torch.randn((7, 7, 2, 1), generator=gen, device=dev) * 0.1)
+    from ducosy_tpu_torch.ops.kernels import residual_chain as k1
+
     waq, _ = quantize_weights_int8(wa)
     wbq, wbs = quantize_weights_int8(wb)
-    scratch = k7.make_scratch(n, h, w, c, dev)
+    scratch = k7.make_scratch(n, h, w, c, dev)     # serves either route
+    trunk = tuple(shape) == tuple(K1_SHAPE)
     failures = []
 
-    def codes(name, got, ref, key, fn, plain_fn):
+    def k7_route(name, xin):
+        return expect_route(k7, name, k7.launch_conv3x3_in.route, shape,
+                            xin.dtype, dev)
+
+    def rounds(rec, route, fn):
+        """At the trunk shape a resident kernel is timed beside the tiled
+        launches it replaces, in alternating rounds."""
+        if not (trunk and route == "resident"):
+            return ""
+        rec["rounds"] = rr = route_rounds(k1, k7, fn, 5)
+        return (f"; alternating rounds: resident {rr['routed']:.3f} ms, "
+                f"tiled {rr['tiled']:.3f} ms")
+
+    def codes(name, got, ref, key, fn, plain_fn, xin):
+        route = k7_route(name, xin)
         share, dmax = code_agreement(got, ref)
         ok = share >= CODE_SHARE and dmax <= 1
         ms, plain_ms = cuda_ms(fn, 5), cuda_ms(plain_fn, 3)
-        log(f"{name}: codes equal {share:.6f}, max step {dmax} kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.3f} ms {'ok' if ok else 'FAIL'}")
-        records[key] = dict(max_abs_err=float(dmax), code_share=share, ms=ms,
-                            plain_ms=plain_ms)
+        rec = records[key] = dict(max_abs_err=float(dmax), code_share=share,
+                                  ms=ms, plain_ms=plain_ms)
+        log(f"{name} [{route}]: codes equal {share:.6f}, max step {dmax} "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+            + rounds(rec, route, fn) + (" ok" if ok else " FAIL"))
         if not ok:
             failures.append(name)
 
@@ -697,20 +825,22 @@ def check_conv_in(k7, dev, records, shape=K1_SHAPE):
         carry = xp.to(dtype)
         # ---- K7, pad 1: io-dtype write, then the int8 write
         got = k7.conv3x3_in(carry, wa, pad=1, scratch=scratch)
+        route = k7_route(f"K7 {dname}", carry)
         ref = k7.conv3x3_in_plain(carry, wa, pad=1)
         torch.cuda.synchronize()
         atol, rtol = K7_TOL[dname]
         ok, emax, emean = compare(got, ref, atol, rtol)
         if dtype == torch.bfloat16 and emean > K7_BF16_MEAN_TOL:
             ok = False
-        ms = cuda_ms(lambda: k7.conv3x3_in(carry, wa, pad=1,
-                                           scratch=scratch), 5)
+        k7_fn = lambda: k7.conv3x3_in(carry, wa, pad=1, scratch=scratch)
+        ms = cuda_ms(k7_fn, 5)
         plain_ms = cuda_ms(lambda: k7.conv3x3_in_plain(carry, wa, pad=1), 3)
-        log(f"K7 pad=1 {tuple(carry.shape)} {dname}: max|d|={emax:.3e} "
-            f"mean|d|={emean:.3e} (atol {atol}, rtol {rtol}) kernel {ms:.3f} "
-            f"ms, plain {plain_ms:.3f} ms {'ok' if ok else 'FAIL'}")
-        records[("k7", dname)] = dict(max_abs_err=emax, ms=ms,
-                                      plain_ms=plain_ms)
+        rec = records[("k7", dname)] = dict(max_abs_err=emax, ms=ms,
+                                            plain_ms=plain_ms)
+        log(f"K7 pad=1 {tuple(carry.shape)} {dname} [{route}]: "
+            f"max|d|={emax:.3e} mean|d|={emean:.3e} (atol {atol}, rtol "
+            f"{rtol}) kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+            + rounds(rec, route, k7_fn) + (" ok" if ok else " FAIL"))
         if not ok:
             failures.append(f"K7 {dname}")
         kw = dict(pad=1, int8_scale=INT8_NORM_SCALE)
@@ -719,7 +849,7 @@ def check_conv_in(k7, dev, records, shape=K1_SHAPE):
         torch.cuda.synchronize()
         codes(f"K7 int8 write pad=1 {dname}", t8, ref8, ("k7_int8", dname),
               lambda: k7.conv3x3_in(carry, wa, scratch=scratch, **kw),
-              lambda: k7.conv3x3_in_plain(carry, wa, **kw))
+              lambda: k7.conv3x3_in_plain(carry, wa, **kw), carry)
         if dtype == torch.bfloat16:
             # ---- K7 on an int8 input with int8 weights (not on the trunk)
             got = k7.conv3x3_in(t8, waq, scratch=scratch, **kw)
@@ -727,7 +857,7 @@ def check_conv_in(k7, dev, records, shape=K1_SHAPE):
             torch.cuda.synchronize()
             codes("K7 int8 input, int8 write pad=1", got, ref, "k7_in8",
                   lambda: k7.conv3x3_in(t8, waq, scratch=scratch, **kw),
-                  lambda: k7.conv3x3_in_plain(t8, waq, **kw))
+                  lambda: k7.conv3x3_in_plain(t8, waq, **kw), t8)
         # ---- K8 on K7's outputs: pad 1 and 0, then int8 taps
         t = k7.conv3x3_in(carry, wa, pad=1, scratch=scratch)
         for in_int8 in (False, True):
@@ -737,6 +867,10 @@ def check_conv_in(k7, dev, records, shape=K1_SHAPE):
                 kw8 = dict(pad=pad, x_pad=1, **qkw)
                 got = k7.conv_block_tail(tp, carry, w, *tail, scratch=scratch,
                                          **kw8)
+                route = expect_route(
+                    k7, f"K8 {dname}", k7.launch_conv_block_tail.route, shape,
+                    dtype if dtype == torch.float32 else tp.dtype, dev,
+                    tail=True)
                 ref = k7.conv_block_tail_plain(tp, carry, w, *tail, **kw8)
                 torch.cuda.synchronize()
                 if in_int8:
@@ -748,20 +882,34 @@ def check_conv_in(k7, dev, records, shape=K1_SHAPE):
                         else float("inf")
                 ok, emax, emean = compare(got, ref, atol, rtol)
                 ok = ok and emean <= mean_tol
-                ms = cuda_ms(lambda: k7.conv_block_tail(
-                    tp, carry, w, *tail, scratch=scratch, **kw8), 5)
+                k8_fn = lambda: k7.conv_block_tail(
+                    tp, carry, w, *tail, scratch=scratch, **kw8)
+                ms = cuda_ms(k8_fn, 5)
                 plain_ms = cuda_ms(lambda: k7.conv_block_tail_plain(
                     tp, carry, w, *tail, **kw8), 3)
-                log(f"K8 pad={pad} x_pad=1 in_int8={in_int8} {dname}: "
-                    f"max|d|={emax:.3e} mean|d|={emean:.3e} (atol {atol}, "
-                    f"rtol {rtol}, mean {mean_tol}) kernel {ms:.3f} ms, plain "
-                    f"{plain_ms:.3f} ms {'ok' if ok else 'FAIL'}")
-                records[("k8", in_int8, pad, dname)] = dict(
+                rec = records[("k8", in_int8, pad, dname)] = dict(
                     max_abs_err=emax, ms=ms, plain_ms=plain_ms)
+                log(f"K8 pad={pad} x_pad=1 in_int8={in_int8} {dname} "
+                    f"[{route}]: max|d|={emax:.3e} mean|d|={emean:.3e} (atol "
+                    f"{atol}, rtol {rtol}, mean {mean_tol}) kernel {ms:.3f} "
+                    f"ms, plain {plain_ms:.3f} ms"
+                    + (rounds(rec, route, k8_fn) if pad == 1 else "")
+                    + (" ok" if ok else " FAIL"))
                 if not ok:
                     failures.append(f"K8 pad={pad} int8={in_int8} {dname}")
+    if trunk and k7.resident_blocks(dev) >= n_tiles(*shape[1:3]) and not all(
+            "rounds" in records[key] for key in (
+                ("k7", "bfloat16"), ("k7_int8", "bfloat16"), "k7_in8",
+                ("k8", False, 1, "bfloat16"), ("k8", True, 1, "bfloat16"))):
+        fail("the trunk shape did not take the resident route on a card "
+             f"that holds {k7.resident_blocks(dev)} blocks at once")
     if failures:
         fail(f"kernel disagrees with its plain version: {failures}")
+
+
+def n_tiles(h: int, w: int) -> int:
+    """128-pixel tiles of an (h, w) image (csrc/common.cuh TILE_M)."""
+    return -(-h * w // 128)
 
 
 def check_conv_loop(k7, dev, records):
@@ -833,6 +981,29 @@ def check_conv_loop(k7, dev, records):
     records[("conv", "parts")] = parts
     log("conv3x3 bf16 by parts (median of 3 alternating rounds): "
         + ", ".join(f"{name} {parts[m]:.4f} ms" for m, name in modes.items()))
+    # the resident kernels by parts, the same way: K7's and K8's cooperative
+    # launches with the loop, the barriers and merges, or the epilogue
+    # compiled out
+    if k7.sample_groups(n, hw, hw, c, torch.bfloat16,
+                        k7.resident_blocks(dev), tail=True):
+        pw = k7.probe_weights(
+            w, torch.randn((c, c // 16), generator=gen, device=dev) * 0.1,
+            torch.randn((c // 16, c), generator=gen, device=dev) * 0.1,
+            torch.randn((7, 7, 2, 1), generator=gen, device=dev) * 0.1)
+        rmodes = {7: "whole", 3: "no epilogue", 5: "no barriers or merges",
+                  1: "loop and partials alone", 2: "barriers and merges alone",
+                  4: "epilogue alone"}
+        for is_tail, name in ((False, "K7"), (True, "K8")):
+            rounds = {m: [] for m in rmodes}
+            for _ in range(3):
+                for m in rmodes:
+                    rounds[m].append(cuda_ms(lambda: k7.resident_probe(
+                        x16, pw, m, is_tail, scratch), 50))
+            rparts = {m: statistics.median(v) for m, v in rounds.items()}
+            records[("resident", name, "parts")] = rparts
+            log(f"{name} resident bf16 by parts (median of 3 alternating "
+                "rounds): " + ", ".join(f"{label} {rparts[m]:.4f} ms"
+                                        for m, label in rmodes.items()))
     # one library call of the same function: timed here, used nowhere
     xc = x16.permute(0, 3, 1, 2)
     wc = w.permute(3, 2, 0, 1).to(torch.bfloat16) \
@@ -874,6 +1045,12 @@ def run_proto_phase(proto, k7, dev, records):
              lambda: proto.conv_block_tail(t, carry, wb, *tail,
                                            scratch=scratch),
              lambda: k7.conv_block_tail_plain(t, carry, wb, *tail)))
+        for route, is_tail in ((k7.launch_conv3x3_in.route, False),
+                               (k7.launch_conv_block_tail.route, True)):
+            expect_route(k7, f"P{1 + is_tail} n={n} {dname}", route,
+                         (n, hw, hw, c), dtype, dev, tail=is_tail)
+        log(f"P1 / P2 n={n} {dname}: routes {k7.launch_conv3x3_in.route} / "
+            f"{k7.launch_conv_block_tail.route}")
         for key, name, (atol, rtol), mean_tol, got, fn, plain_fn in cases:
             ref = plain_fn()
             torch.cuda.synchronize()
@@ -909,15 +1086,24 @@ def run_proto_phase(proto, k7, dev, records):
         fail("the prototype bench launched no kernel")
 
 
-def profile_patient(run, label: str) -> dict:
+# device kernels of the tiled route's light passes over the trunk's fp32
+# accumulator: none may run where K7 and K8 are resident (K2's own
+# norm_apply and finalize_stats read the io dtype and stay)
+TILED_ONLY = ("channel_gate", "spatial_tail", "norm_apply<float",
+              "norm_apply_int8<float")
+
+
+def profile_patient(run, label: str, resident_k2: int | None = None) -> dict:
     """One warm patient under torch.profiler: device-busy time (the sum of
     the kernels' and copies' durations; the engine uses one stream) and the
     time by kernel name, logged with the ten largest names. The idle share
     is taken against the traced run's own device span, from the start of
     its first device event to the end of its last, so the host time before
     the first kernel and after the last copy is outside it. Where the
-    profiler records no device event the numbers are "not measured";
-    nothing is judged."""
+    profiler records no device event the numbers are "not measured".
+    Times are not judged. With ``resident_k2`` (the K2 launches of a patient
+    whose trunk runs resident) the run fails if a kernel of the tiled
+    route's light passes shows, or finalize_stats beyond K2's own."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -929,10 +1115,12 @@ def profile_patient(run, label: str) -> dict:
         run()
         torch.cuda.synchronize()
     by: dict = {}
+    count: dict = {}
     first, last = float("inf"), 0.0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            count[e.name] = count.get(e.name, 0) + 1
             first = min(first, e.time_range.start)
             last = max(last, e.time_range.end)
     busy = sum(by.values())
@@ -948,6 +1136,15 @@ def profile_patient(run, label: str) -> dict:
         f"{ours:.1f} ms ({100 * ours / busy:.1f}% of busy)")
     for name, ms in sorted(by.items(), key=lambda kv: -kv[1])[:10]:
         log(f"  {ms:8.2f} ms {100 * ms / busy:5.1f}%  {name[:90]}")
+    if resident_k2 is not None:
+        stray = [k for k in by if any(t in k for t in TILED_ONLY)]
+        finalize = sum(v for k, v in count.items() if "finalize_stats" in k)
+        log(f"profile {label}: kernels of the tiled route's light passes: "
+            f"{stray or 'none'}; finalize_stats launches {finalize} (K2's "
+            f"own: {resident_k2})")
+        if stray or finalize != resident_k2:
+            fail(f"profile {label}: the resident trunk ran tiled-route "
+                 f"kernels {stray}, finalize_stats x{finalize}")
     return dict(span_ms=span, busy_ms=busy, ours_ms=ours)
 
 
@@ -993,11 +1190,20 @@ def run_mega_engine_phase(k1, k2, k7, dev, st, lung, records):
         records[("launches", "mega", what)] = got
         return out
 
+    def routed(name):
+        return tiled_route(k1, k7) if "tiled route" in name else \
+            contextlib.nullcontext()
+
     def rates(engines, label):
         rounds = {k: [] for k in engines}
+        for name, eng in engines.items():
+            if "tiled route" in name:
+                with routed(name):
+                    run(eng)                  # warm the tiled route
         for _ in range(3):                    # alternate the modes
             for name, eng in engines.items():
-                rounds[name].append(SLICES / run(eng)[1])
+                with routed(name):
+                    rounds[name].append(SLICES / run(eng)[1])
         for name, v in rounds.items():
             log(f"engine {label} {name}: slices/s median "
                 f"{statistics.median(v):.2f} rounds "
@@ -1014,11 +1220,19 @@ def run_mega_engine_phase(k1, k2, k7, dev, st, lung, records):
     log(f"engine bf16 mega vs bf16 chain: |dHU| mean {d[0]:.4f} p99 "
         f"{d[1]:.4f} max {d[2]:.1f}")
     records["mega_slices_per_s"] = rates(
-        {"mega": mega, "chain": chain, "plain": plain}, "bf16")
+        {"mega": mega, "mega, tiled route": mega, "chain": chain,
+         "plain": plain}, "bf16")
+    check_not_slower("bf16", records["mega_slices_per_s"], "mega")
     del plain
+    resident = k7.sample_groups(N, *K1_SHAPE[1:], torch.bfloat16,
+                                k7.resident_blocks(dev), tail=True) > 0
+    k2_calls = lambda per_gen: 2 * per_gen * n_chunks if resident else None
     for name, eng in (("mega", mega), ("chain", chain)):
         records[("profile", name)] = profile_patient(
-            lambda: run(eng), f"bf16 {name}")
+            lambda: run(eng), f"bf16 {name}", k2_calls(2))
+    with tiled_route(k1, k7):
+        records[("profile", "mega, tiled route")] = profile_patient(
+            lambda: run(mega), "bf16 mega, tiled route")
 
     out32, _ = run(engine("mega", dtype=torch.float32))
     ref32, _ = run(engine("plain", dtype=torch.float32))
@@ -1048,10 +1262,13 @@ def run_mega_engine_phase(k1, k2, k7, dev, st, lung, records):
             fail(f"mega quant={quant}: final-tap mean |dHU| {final[0]} > "
                  f"{QUANT_MEAN_DHU_MAX}")
         records[("mega_slices_per_s", quant)] = rates(
-            {"mega": eng, "chain": engine("chain", quant)},
-            f"quant={quant}")
+            {"mega": eng, "mega, tiled route": eng,
+             "chain": engine("chain", quant)}, f"quant={quant}")
+        check_not_slower(f"quant={quant}",
+                         records[("mega_slices_per_s", quant)], "mega")
         records[("profile", quant)] = profile_patient(
-            lambda: run(eng), f"quant={quant} mega")
+            lambda: run(eng), f"quant={quant} mega",
+            k2_calls(2 if quant == "trunk" else 1))
         del eng
         torch.cuda.empty_cache()
 
@@ -1128,10 +1345,19 @@ def run_quant_engine_phase(k1, k2, k4, dev, st, lung, records):
         if final[0] > QUANT_MEAN_DHU_MAX:
             fail(f"quant={quant}: final-tap mean |dHU| {final[0]} > "
                  f"{QUANT_MEAN_DHU_MAX}")
+    from ducosy_tpu_torch.ops.kernels import conv_in as k7
+
+    engines.update({f"{k}, tiled route": e for k, e in list(engines.items())})
+    routed = lambda name: tiled_route(k1, k7) if "tiled route" in name \
+        else contextlib.nullcontext()
+    for name, eng in engines.items():
+        with routed(name):
+            run(eng)                          # warm either route
     rounds = {k: [] for k in engines}
-    for _ in range(3):                        # alternate the three modes
+    for _ in range(3):                        # alternate the modes and routes
         for name, eng in engines.items():
-            rounds[name].append(SLICES / run(eng)[1])
+            with routed(name):
+                rounds[name].append(SLICES / run(eng)[1])
     for name, rates in rounds.items():
         log(f"engine {name} chain: slices/s median "
             f"{statistics.median(rates):.2f} rounds "
@@ -1139,6 +1365,8 @@ def run_quant_engine_phase(k1, k2, k4, dev, st, lung, records):
             f" bf16 compute, incl. upload, postprocess, download)")
     records["quant_slices_per_s"] = {k: statistics.median(v)
                                      for k, v in rounds.items()}
+    for name in ("bf16", "trunk", "full"):
+        check_not_slower("chain", records["quant_slices_per_s"], name)
     del engines, ref
 
     tail = engine("trunk", trunk="tail")
@@ -1418,7 +1646,20 @@ def run_training_phase(k2, k4, tmp: Path, records):
         f"{TRAIN_N} x {SIZE}^2, bf16, {BLOCKS} blocks, SOFT_TISSUE): "
         + ", ".join(f"{t} remat={results[(t, r)]['remat']} {m:.4f}"
                     for (t, r), m in med.items()))
+    # every step beside the median: a plain step that drifts between runs
+    # of unchanged code shows here as a slow step, an out-of-memory retry
+    # (its first step, rebuilt under remat) or an even spread
+    for (t, r), out in results.items():
+        log(f"training {t} remat={r}: steps "
+            f"{[round(v, 4) for v in out['step_seconds']]} s, median of "
+            f"steps 2-{TRAIN_STEPS} {med[(t, r)]:.4f}, min "
+            f"{min(out['step_seconds'][1:]):.4f}, max "
+            f"{max(out['step_seconds'][1:]):.4f}; ended in remat "
+            f"{out['remat']}, out-of-memory retry "
+            f"{'fired' if out['oom_fallback'] else 'did not fire'}, peak "
+            f"{out['peak_memory_bytes'] / 2**30:.2f} GiB")
     records["s_per_step"] = med
+    records["train_steps"] = {k: v["step_seconds"] for k, v in results.items()}
 
 
 def run_masked_cli_phase(k1, k2, dev, tmp: Path):
@@ -1638,7 +1879,7 @@ def main() -> None:
             spills = "spill" in line and "0 bytes spill stores" not in line
             if "registers" in line or spills:
                 log(f"  nvcc: {line.strip()}")
-            if spills and "conv3x3" in entry:
+            if spills and ("conv3x3" in entry or "resident" in entry):
                 fail(f"{name}.cu: the conv kernel {entry} spills registers: "
                      f"{line.strip()}")
 

@@ -81,6 +81,18 @@ __device__ __forceinline__ void tile_stats(const float* cs, int rows,
 // Merge the `tiles` partials of channel ci of sample ni (Chan et al.):
 // returns the mean in *mean and the centred M2 in *m2; *mx gets the max
 // when pmax is given.
+// One step of Chan's merge: the running (count, mean, M2) takes in a tile of
+// nb pixels with mean pm and centred M2 pq. Every merge of the port goes
+// through here, so every route gives a channel the same bits.
+__device__ __forceinline__ void chan_step(float& cnt, float& m, float& q,
+                                          float pm, float pq, float nb) {
+  const float tot = cnt + nb;
+  const float d = pm - m;
+  m += d * (nb / tot);
+  q += pq + d * d * (cnt * nb / tot);
+  cnt = tot;
+}
+
 __device__ __forceinline__ void merge_tiles(const float* pmean,
                                             const float* pm2,
                                             const float* pmax, int ni, int ci,
@@ -90,12 +102,8 @@ __device__ __forceinline__ void merge_tiles(const float* pmean,
   float cnt = 0.f, m = 0.f, q = 0.f, x = -INFINITY;
   for (int t = 0; t < tiles; ++t) {
     const size_t k = ((size_t)ni * tiles + t) * c + ci;
-    const float nb = (float)min(TILE_M, hw - t * TILE_M);
-    const float tot = cnt + nb;
-    const float d = pmean[k] - m;
-    m += d * (nb / tot);
-    q += pm2[k] + d * d * (cnt * nb / tot);
-    cnt = tot;
+    chan_step(cnt, m, q, pmean[k], pm2[k],
+              (float)min(TILE_M, hw - t * TILE_M));
     if (pmax) x = fmaxf(x, pmax[k]);
   }
   *mean = m;
@@ -105,6 +113,137 @@ __device__ __forceinline__ void merge_tiles(const float* pmean,
 
 __device__ __forceinline__ float inv_std(float m2, int hw, float eps) {
   return 1.f / sqrtf(fmaxf(m2 / hw, 0.f) + eps);
+}
+
+// A barrier across the `nblocks` blocks that share `word`, for kernels
+// launched cooperatively (every block resident at once). The word counts
+// arrivals and is never reset: a barrier is passed when the count reaches
+// the next multiple of nblocks, so the word is zeroed once, when its scratch
+// is made, and must then only ever serve groups of the same size whose
+// blocks all pass the same number of barriers. `target` is the block's own
+// record of that multiple, 0 before its first barrier of the launch: the
+// first arrival reads the count back to learn it, later ones only add
+// (a reduction, no round trip). What the block wrote before the barrier is
+// visible to every block after it, to loads that do not go through L1
+// (__ldcg).
+__device__ __forceinline__ void grid_barrier(unsigned long long* word,
+                                             unsigned nblocks,
+                                             unsigned long long& target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (target == 0) {
+      __threadfence();
+      target = (atomicAdd(word, 1ULL) / nblocks + 1) * nblocks;
+    } else {
+      target += nblocks;
+      asm volatile("red.release.gpu.global.add.u64 [%0], 1;\n" ::"l"(word)
+                   : "memory");
+    }
+    unsigned long long now;
+    do {
+      asm volatile("ld.acquire.gpu.global.u64 %0, [%1];\n"
+                   : "=l"(now)
+                   : "l"(word)
+                   : "memory");
+    } while (now < target);
+  }
+  __syncthreads();
+}
+
+// The statistics of sample ni for a cooperative kernel whose blocks have
+// each written their tile's partials: after a grid barrier the group's
+// blocks share the c channels out (block `bid` of `nblocks` takes channels
+// bid, bid + nblocks, ...), each stages its channels' `tiles` partials from
+// L2 in `work` (3 (c / nblocks + 1) tiles floats of shared memory) and
+// merges them, one warp a channel: lane l takes tiles l, l + 32, ... in
+// order with chan_step, then the lanes' (count, mean, M2) combine pairwise
+// with the same formula (a tree, so the last bits may differ from
+// merge_tiles' serial order: one thread walking 128 tiles took 4 us a
+// sample). The block publishes mean and 1/std (and max with pmax) in gmean /
+// grstd / gmax at [ni * c + channel]; after a second barrier every block
+// reads the bn channels from co0 that it normalizes into smean / srstd
+// (/ smax). One merge per channel and sample on the whole card: letting
+// every block merge all of its channels itself re-reads the sample's
+// partials once per block (49 MB a sample at the trunk shape, 30 us).
+// Ends with a block barrier.
+__device__ __forceinline__ void merge_sample(
+    const float* pmean, const float* pm2, const float* pmax, float* gmean,
+    float* grstd, float* gmax, unsigned long long* bar, unsigned nblocks,
+    unsigned long long& target, int bid, int ni, int co0, int bn, int tiles,
+    int hw, int c, float eps, float* work, float* smean, float* srstd,
+    float* smax) {
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int warp = tid / 32, lane = tid % 32;
+  grid_barrier(bar, nblocks, target);
+  const int mine = bid < c ? (c - bid + (int)nblocks - 1) / (int)nblocks : 0;
+  float* wm = work;
+  float* wq = wm + mine * tiles;
+  float* wx = wq + mine * tiles;
+  for (int e0 = 0; e0 < mine * tiles; e0 += 4 * nth) {
+    float vm[4], vq[4], vx[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = e0 + u * nth + tid;
+      if (e < mine * tiles) {
+        const size_t k = ((size_t)ni * tiles + e % tiles) * c + bid +
+                         (e / tiles) * nblocks;
+        vm[u] = __ldcg(pmean + k);
+        vq[u] = __ldcg(pm2 + k);
+        if (pmax) vx[u] = __ldcg(pmax + k);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = e0 + u * nth + tid;
+      if (e < mine * tiles) {
+        wm[e] = vm[u];
+        wq[e] = vq[u];
+        if (pmax) wx[e] = vx[u];
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = warp; i < mine; i += nth / 32) {
+    float cnt = 0.f, m = 0.f, q = 0.f, x = -INFINITY;
+    for (int t = lane; t < tiles; t += 32) {
+      chan_step(cnt, m, q, wm[i * tiles + t], wq[i * tiles + t],
+                (float)min(TILE_M, hw - t * TILE_M));
+      if (pmax) x = fmaxf(x, wx[i * tiles + t]);
+    }
+#pragma unroll
+    for (int off = 1; off < 32; off *= 2) {
+      const float cb = __shfl_xor_sync(0xffffffffu, cnt, off);
+      const float mb = __shfl_xor_sync(0xffffffffu, m, off);
+      const float qb = __shfl_xor_sync(0xffffffffu, q, off);
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+      // the lower lane's tiles come first: both lanes compute the same bits
+      const bool low = !(lane & off);
+      float c0 = low ? cnt : cb, m0 = low ? m : mb, q0 = low ? q : qb;
+      const float c1 = low ? cb : cnt, m1 = low ? mb : m, q1 = low ? qb : q;
+      if (c1 > 0.f) {
+        if (c0 > 0.f) {
+          chan_step(c0, m0, q0, m1, q1, c1);
+        } else {
+          c0 = c1; m0 = m1; q0 = q1;
+        }
+      }
+      cnt = c0; m = m0; q = q0;
+    }
+    if (lane == 0) {
+      const size_t k = (size_t)ni * c + bid + i * nblocks;
+      gmean[k] = m;
+      grstd[k] = inv_std(q, hw, eps);
+      if (pmax) gmax[k] = x;
+    }
+  }
+  grid_barrier(bar, nblocks, target);
+  if (tid < bn) {
+    const size_t k = (size_t)ni * c + co0 + tid;
+    smean[tid] = __ldcg(gmean + k);
+    srstd[tid] = __ldcg(grstd + k);
+    if (pmax) smax[tid] = __ldcg(gmax + k);
+  }
+  __syncthreads();
 }
 
 constexpr int STATS_THREADS = 256;

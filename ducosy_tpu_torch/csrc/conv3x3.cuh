@@ -1,8 +1,10 @@
 // The 3x3 VALID conv tiles shared by K1/K1q/K6 (residual_chain.cu) and
 // K7/K8 (conv_in.cu): an implicit GEMM over the nine shifted taps of a
-// pre-padded NHWC input. Every variant writes the fp32 accumulator to device
-// memory with the tile's per-channel (mean, M2, max) partials, which
-// finalize_stats or channel_gate later merge.
+// pre-padded NHWC input. The tiled kernels here write the fp32 accumulator
+// to device memory with the tile's per-channel (mean, M2, max) partials,
+// which finalize_stats or channel_gate later merge; the resident kernels
+// (conv_resident.cuh) run the same ring and MMAs (conv_tile_mma) and the
+// same partials (tile_partials) and keep the accumulator in registers.
 //
 // conv3x3_wgmma, the bf16 (fp32 accumulate) and int8 x int8 -> exact int32
 // loop, designed for Hopper:
@@ -196,41 +198,43 @@ __device__ __forceinline__ void warp_columns(float (&s)[16], int lane) {
   scatter_step<4, 4, MAX>(s, lane);
 }
 
-// 3x3 VALID conv on the tensor cores, fp32 out. TIn is bf16 (fp32
-// accumulate) or int8_t (shifted-grid activations x per-channel weights,
-// exact int32). xp (n, h+2, w+2, c); wt (9, c, c) as (tap, cout, cin). ROWB:
-// bytes of input channels per K step and operand row (128, or 64 for int8
-// where c % 128 != 0). Grid (c / BN, tiles, n), CONV_THREADS threads,
-// RING_STAGES * (TILE_M + BN) * ROWB + RING_ALIGN bytes of dynamic shared
-// memory. See the note at the top of the file. PARTS is PART_ALL everywhere
-// but in the timing probe (ducosy_conv3x3_probe), which compiles parts out.
-template <typename TIn, int ROWB, int BN, int PARTS = PART_ALL>
-__global__ void __launch_bounds__(CONV_THREADS, 1)
-conv3x3_wgmma(const TIn* __restrict__ xp, const TIn* __restrict__ wt,
-              float* __restrict__ acc, float* __restrict__ pmean,
-              float* __restrict__ pm2, float* __restrict__ pmax, int h, int w,
-              int c) {
+// The geometry of one conv3x3_wgmma instantiation: TIn is bf16 or int8_t,
+// ROWB the bytes of input channels per K step and operand row, BN the output
+// channels of a block.
+template <typename TIn, int ROWB, int BN> struct ConvGeom {
   using Acc = std::conditional_t<sizeof(TIn) == 1, int, float>;
-  constexpr int EPC = 16 / sizeof(TIn);          // elements per 16-byte chunk
-  constexpr int KB = ROWB / sizeof(TIn);         // input channels per K step
-  constexpr int CPR = ROWB / 16;                 // chunks per operand row
-  constexpr int RPP = CONV_THREADS / CPR;        // rows per load pass
-  constexpr int A_PASSES = TILE_M / RPP, B_PASSES = BN / RPP;
-  constexpr int A_BYTES = TILE_M * ROWB, STAGE = (TILE_M + BN) * ROWB;
-  constexpr int NB = BN / 8, CHUNKS = BN / 64;   // 8- and 64-column groups
+  static constexpr int EPC = 16 / sizeof(TIn);   // elements per 16-byte chunk
+  static constexpr int KB = ROWB / sizeof(TIn);  // input channels per K step
+  static constexpr int CPR = ROWB / 16;          // chunks per operand row
+  static constexpr int RPP = CONV_THREADS / CPR; // rows per load pass
+  static constexpr int A_PASSES = TILE_M / RPP, B_PASSES = BN / RPP;
+  static constexpr int A_BYTES = TILE_M * ROWB, STAGE = (TILE_M + BN) * ROWB;
+  static constexpr int SMEM = RING_STAGES * STAGE + RING_ALIGN;
   // descriptor: start address >> 4 | LBO (unused under a swizzle) = 1 |
   // SBO = 8 rows | layout 1 = 128-byte, 2 = 64-byte swizzle
-  constexpr uint64_t DESC = (uint64_t(1) << 16) |
-                            (uint64_t(8 * ROWB / 16) << 32) |
-                            (uint64_t(ROWB == 128 ? 1 : 2) << 62);
-  extern __shared__ unsigned char ring_raw[];
+  static constexpr uint64_t DESC = (uint64_t(1) << 16) |
+                                   (uint64_t(8 * ROWB / 16) << 32) |
+                                   (uint64_t(ROWB == 128 ? 1 : 2) << 62);
+};
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int co0 = blockIdx.x * BN, tile = blockIdx.y, ni = blockIdx.z;
-  const int hw = h * w, wp = w + 2, m0 = tile * TILE_M;
-  const int rows = min(TILE_M, hw - m0);
-  const uint32_t ring =
-      (smem_u32(ring_raw) + RING_ALIGN - 1) & ~uint32_t(RING_ALIGN - 1);
+// The ring and the MMAs of one tile: the 128 pixels from m0 of sample ni x
+// the BN output channels from co0, summed over the nine taps into d (see the
+// note at the top of the file; the accumulator layout is Wgmma's). `ring` is
+// the RING_ALIGN-aligned shared address of ConvGeom::SMEM - RING_ALIGN bytes.
+// Ends with every MMA waited for and a block barrier: the ring is free.
+// MMA = false (the timing probes) runs the loads alone.
+template <typename TIn, int ROWB, int BN, bool MMA = true>
+__device__ __forceinline__ void conv_tile_mma(
+    const TIn* __restrict__ xp, const TIn* __restrict__ wt,
+    typename ConvGeom<TIn, ROWB, BN>::Acc (&d)[BN / 2], uint32_t ring, int ni,
+    int m0, int co0, int h, int w, int c) {
+  using G = ConvGeom<TIn, ROWB, BN>;
+  constexpr int EPC = G::EPC, KB = G::KB, CPR = G::CPR, RPP = G::RPP;
+  constexpr int A_PASSES = G::A_PASSES, B_PASSES = G::B_PASSES;
+  constexpr int A_BYTES = G::A_BYTES, STAGE = G::STAGE;
+  constexpr uint64_t DESC = G::DESC;
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int hw = h * w, wp = w + 2;
 
   // loads: this thread copies chunk ld_chunk of rows ld_row + i RPP, to the
   // swizzled place: chunk ^ (row % 8) in 128-byte rows, chunk ^ (row / 2 % 4)
@@ -265,7 +269,6 @@ conv3x3_wgmma(const TIn* __restrict__ xp, const TIn* __restrict__ wt,
     ld_slot = ld_slot + 1 == RING_STAGES ? 0 : ld_slot + 1;
   };
 
-  Acc d[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) d[i] = 0;
 
@@ -286,7 +289,7 @@ conv3x3_wgmma(const TIn* __restrict__ xp, const TIn* __restrict__ wt,
     __syncthreads();    // all of stage kt landed; MMAs of kt - 2 all waited for
     if (kt + RING_AHEAD < steps) load_stage();
     cp_async_commit();
-    if constexpr (PARTS & PART_MMA) {
+    if constexpr (MMA) {
       wgmma_fence();
 #pragma unroll
       for (int k = 0; k < ROWB / 32; ++k)
@@ -302,30 +305,27 @@ conv3x3_wgmma(const TIn* __restrict__ xp, const TIn* __restrict__ wt,
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) pin(d[i]);
   __syncthreads();                               // the ring is free
+}
 
-  // ---- epilogue, from the registers. This thread's rows r0 and r0 + 8.
-  unsigned char* base = ring_raw + (ring - smem_u32(ring_raw));
-  float* red = reinterpret_cast<float*>(base);   // [8 warps][BN] sums, then M2
+// The tile's per-channel partials from the accumulator registers: mean, M2
+// and (if pmax) max over the tile's `rows` valid pixels, written at
+// pmean[k], pm2[k], pmax[k] for the block's channels k < BN (the pointers
+// already at the tile's first channel). `red` is 17 BN floats of shared
+// memory that nothing else uses meanwhile; its last BN floats keep the tile
+// means. A reduce-scatter over the eight lanes that share a column, then one
+// pass through shared memory across the eight warps: sum and max, then, with
+// the tile mean broadcast back, the centred M2.
+template <int BN, typename Acc>
+__device__ __forceinline__ void tile_partials(const Acc (&d)[BN / 2],
+                                              float* red, int rows,
+                                              float* pmean, float* pm2,
+                                              float* pmax) {
+  constexpr int CHUNKS = BN / 64;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   float* redx = red + 8 * BN;                    // [8 warps][BN] maxima
   float* tmean = redx + 8 * BN;                  // [BN] tile means
   const int r0 = warp * 16 + lane / 4, cq = (lane % 4) * 2;
   const bool ok0 = r0 < rows, ok1 = r0 + 8 < rows;
-  float* o0 = acc + ((size_t)ni * hw + m0 + r0) * c + co0 + cq;
-  float* o1 = o0 + (size_t)8 * c;
-  // (the probe without the store keeps the branch, never taken: h > 0; with
-  // no reader of the accumulators the assembler drops the MMAs)
-  if ((PARTS & PART_STORE) || h < 0) {
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      if (ok0)
-        *reinterpret_cast<float2*>(o0 + j * 8) =
-            make_float2((float)d[4 * j], (float)d[4 * j + 1]);
-      if (ok1)
-        *reinterpret_cast<float2*>(o1 + j * 8) =
-            make_float2((float)d[4 * j + 2], (float)d[4 * j + 3]);
-    }
-  }
-  if constexpr (PARTS & PART_STATS) {
 #pragma unroll
   for (int q = 0; q < CHUNKS; ++q) {
     float s[16], mx[16];
@@ -346,16 +346,15 @@ conv3x3_wgmma(const TIn* __restrict__ xp, const TIn* __restrict__ wt,
     }
   }
   __syncthreads();
-  const size_t pbase = ((size_t)ni * gridDim.y + tile) * c + co0;
   if (tid < BN) {
     float t = 0.f, x = -INFINITY;
 #pragma unroll
     for (int k = 0; k < 8; ++k) t += red[k * BN + tid];
-    tmean[tid] = pmean[pbase + tid] = t / rows;
+    tmean[tid] = pmean[tid] = t / rows;
     if (pmax) {
 #pragma unroll
       for (int k = 0; k < 8; ++k) x = fmaxf(x, redx[k * BN + tid]);
-      pmax[pbase + tid] = x;
+      pmax[tid] = x;
     }
   }
   __syncthreads();
@@ -378,9 +377,63 @@ conv3x3_wgmma(const TIn* __restrict__ xp, const TIn* __restrict__ wt,
     float t = 0.f;
 #pragma unroll
     for (int k = 0; k < 8; ++k) t += red[k * BN + tid];
-    pm2[pbase + tid] = t;
+    pm2[tid] = t;
   }
-  }  // PART_STATS
+}
+
+// 3x3 VALID conv on the tensor cores, fp32 out. TIn is bf16 (fp32
+// accumulate) or int8_t (shifted-grid activations x per-channel weights,
+// exact int32). xp (n, h+2, w+2, c); wt (9, c, c) as (tap, cout, cin). ROWB:
+// bytes of input channels per K step and operand row (128, or 64 for int8
+// where c % 128 != 0). Grid (c / BN, tiles, n), CONV_THREADS threads,
+// ConvGeom::SMEM bytes of dynamic shared memory. See the note at the top of
+// the file. PARTS is PART_ALL everywhere but in the timing probe
+// (ducosy_conv3x3_probe), which compiles parts out.
+template <typename TIn, int ROWB, int BN, int PARTS = PART_ALL>
+__global__ void __launch_bounds__(CONV_THREADS, 1)
+conv3x3_wgmma(const TIn* __restrict__ xp, const TIn* __restrict__ wt,
+              float* __restrict__ acc, float* __restrict__ pmean,
+              float* __restrict__ pm2, float* __restrict__ pmax, int h, int w,
+              int c) {
+  using Acc = typename ConvGeom<TIn, ROWB, BN>::Acc;
+  constexpr int NB = BN / 8;                     // 8-column groups
+  extern __shared__ unsigned char ring_raw[];
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int co0 = blockIdx.x * BN, tile = blockIdx.y, ni = blockIdx.z;
+  const int hw = h * w, m0 = tile * TILE_M;
+  const int rows = min(TILE_M, hw - m0);
+  const uint32_t ring =
+      (smem_u32(ring_raw) + RING_ALIGN - 1) & ~uint32_t(RING_ALIGN - 1);
+
+  Acc d[BN / 2];
+  conv_tile_mma<TIn, ROWB, BN, (PARTS & PART_MMA) != 0>(xp, wt, d, ring, ni,
+                                                        m0, co0, h, w, c);
+
+  // ---- epilogue, from the registers. This thread's rows r0 and r0 + 8.
+  float* red = reinterpret_cast<float*>(ring_raw + (ring - smem_u32(ring_raw)));
+  const int r0 = warp * 16 + lane / 4, cq = (lane % 4) * 2;
+  const bool ok0 = r0 < rows, ok1 = r0 + 8 < rows;
+  float* o0 = acc + ((size_t)ni * hw + m0 + r0) * c + co0 + cq;
+  float* o1 = o0 + (size_t)8 * c;
+  // (the probe without the store keeps the branch, never taken: h > 0; with
+  // no reader of the accumulators the assembler drops the MMAs)
+  if ((PARTS & PART_STORE) || h < 0) {
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      if (ok0)
+        *reinterpret_cast<float2*>(o0 + j * 8) =
+            make_float2((float)d[4 * j], (float)d[4 * j + 1]);
+      if (ok1)
+        *reinterpret_cast<float2*>(o1 + j * 8) =
+            make_float2((float)d[4 * j + 2], (float)d[4 * j + 3]);
+    }
+  }
+  if constexpr (PARTS & PART_STATS) {
+    const size_t pbase = ((size_t)ni * gridDim.y + tile) * c + co0;
+    tile_partials<BN>(d, red, rows, pmean + pbase, pm2 + pbase,
+                      pmax ? pmax + pbase : nullptr);
+  }
 }
 
 // Epilogue of conv3x3_f32: the accumulator tile is in cs (fp32, row = pixel,
@@ -491,7 +544,7 @@ template <typename TIn, int ROWB, int BN, int PARTS = PART_ALL>
 static int launch_wgmma(const TIn* xp, const TIn* wt, float* acc, float* pmean,
                  float* pm2, float* pmax, int n, int h, int w, int c,
                  int tiles, cudaStream_t s) {
-  constexpr int smem = RING_STAGES * (TILE_M + BN) * ROWB + RING_ALIGN;
+  constexpr int smem = ConvGeom<TIn, ROWB, BN>::SMEM;
   static const cudaError_t raised = cudaFuncSetAttribute(
       conv3x3_wgmma<TIn, ROWB, BN, PARTS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

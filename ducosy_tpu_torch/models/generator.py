@@ -254,7 +254,8 @@ class Generator(nn.Module):
         if quant:
             wbs, ws = self.qweights["conv2"]
         n, hh, ww, c = hp.shape
-        scratch = k7.make_scratch(n, hh - 2, ww - 2, c, hp.device) \
+        # per route: no fp32 accumulator where K7 and K8 run resident
+        scratch = k7.make_scratch(n, hh - 2, ww - 2, c, hp.device, hp.dtype) \
             if hp.device.type == "cuda" else None
         for i in range(r):
             t = k7.conv3x3_in(hp, was[i], pad=1, scratch=scratch,

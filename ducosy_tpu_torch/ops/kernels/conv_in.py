@@ -17,11 +17,22 @@ Conv biases are not inputs of the kernels: each conv feeds an InstanceNorm,
 whose mean subtraction cancels a per-channel constant exactly.
 
 The kernels are CUDA C++ (``csrc/conv_in.cu``), built from the launches K1
-uses (``csrc/conv3x3.cuh``, ``common.cuh``, ``cbam_tail.cuh``). Their
-scratch (the fp32 accumulator and the statistics partials) can be made once
-with ``make_scratch`` and passed to every call of a trunk. ``conv3x3`` is
-the conv launch they and K1 share, alone: the fp32 accumulator of the bf16
-(wgmma), int8 (wgmma, exact int32) or fp32 (exact FMA) loop.
+uses, and run by one of two routes that ``conv_route`` picks from the shape,
+the dtype and the device's co-resident block count, never from a failure:
+  "resident" (``csrc/conv_resident.cuh``): one cooperative launch; a
+    sample's fp32 accumulator stays in the registers of the blocks that
+    computed it, across a grid barrier, and the statistics' merge, the gates
+    and the reflect-padded write are the conv kernel's epilogue. bf16 or
+    int8 input, bf16 io, every tile of a sample on the card at once, and for
+    K8 C = 64, 128 or 256.
+  "tiled" (``csrc/conv3x3.cuh``, ``common.cuh``, ``cbam_tail.cuh``): the conv
+    writes its fp32 accumulator and per-tile partials, and two more launches
+    finalize and apply. fp32 and everything that does not fit.
+Their scratch (``make_scratch``: the statistics partials, the resident
+route's map and barrier words, the tiled route's fp32 accumulator) can be
+made once and passed to every call of a trunk. ``conv3x3`` is the tiled conv
+launch alone: the fp32 accumulator of the bf16 (wgmma), int8 (wgmma, exact
+int32) or fp32 (exact FMA) loop.
 
 The ``*_plain`` functions are the TPU package's XLA compositions
 (``_xla_conv_in``, ``_xla_conv_tail``, conv_in.py:501-536) in plain PyTorch,
@@ -135,21 +146,73 @@ def conv3x3_plain(xp, w) -> torch.Tensor:
                   hwio_to_oihw(w).to(xp.dtype).to(torch.float32))
 
 
+_RESIDENT_TAIL_C = (64, 128, 256)   # K8 resident: one block holds all C
+_RESIDENT_TAIL_W = 256              # ... and stages 7 + rows of the gate map
+BARRIER_WORDS = 256                 # >= any device's co-resident blocks
+
+
+def _sample_blocks(h: int, w: int, c: int) -> int:
+    """Blocks of the conv kernel that one sample takes: its 128-pixel tiles
+    times its channel blocks (BN the widest of 256, 128, 64 that divides C)."""
+    bn = 256 if c % 256 == 0 else 128 if c % 128 == 0 else TILE_N
+    return -(-h * w // TILE_M) * (c // bn)
+
+
+def conv_route(h: int, w: int, c: int, dtype, blocks_resident: int, *,
+               tail: bool = False) -> str:
+    """The route of a K7 (or, with ``tail``, K8) call whose conv output is
+    (h, w, c): "resident" or "tiled". ``dtype`` is the conv input's (for K8
+    with fp32 io: float32); ``blocks_resident`` how many blocks of the
+    resident kernels the device holds at once (``resident_blocks``).
+    Resident needs a tensor-core dtype, all of a sample's blocks on the card
+    at once and, for K8, one block that holds every channel and a width of
+    at most 256 (the spatial gate's window rows live in shared memory)."""
+    if dtype not in (torch.bfloat16, torch.int8):
+        return "tiled"
+    if tail and (c not in _RESIDENT_TAIL_C or w > _RESIDENT_TAIL_W):
+        return "tiled"
+    return "resident" if _sample_blocks(h, w, c) <= blocks_resident \
+        else "tiled"
+
+
+def sample_groups(n: int, h: int, w: int, c: int, dtype,
+                  blocks_resident: int, *, tail: bool = False) -> int:
+    """How many samples a resident launch holds side by side (each group of
+    blocks walks every ``groups``-th sample); 0 on the tiled route."""
+    if conv_route(h, w, c, dtype, blocks_resident, tail=tail) == "tiled":
+        return 0
+    return min(n, blocks_resident // _sample_blocks(h, w, c), BARRIER_WORDS)
+
+
 class Scratch(NamedTuple):
-    """Device scratch of one K7 or K8 call on (n, h, w, c)."""
-    acc: torch.Tensor        # (n, h*w, c) fp32 conv accumulator
-    partials: torch.Tensor   # (3, n, tiles, c) per-tile mean, M2, max
-    stats: torch.Tensor      # (3, n, c) mean, 1/std, channel gate
+    """Device scratch of K7 / K8 calls on (n, h, w, c)."""
+    acc: torch.Tensor | None  # (n, h*w, c) fp32 conv accumulator (tiled)
+    partials: torch.Tensor    # (3, n, tiles, c) per-tile mean, M2, max
+    stats: torch.Tensor       # (3, n, c) mean, 1/std, channel gate (tiled)
+    map: torch.Tensor         # (n, h, w, 2) channel mean / max of t (resident)
+    barrier: torch.Tensor     # (BARRIER_WORDS,) int64 arrival counts, zeroed
 
 
-def make_scratch(n: int, h: int, w: int, c: int, device) -> Scratch:
+def make_scratch(n: int, h: int, w: int, c: int, device, dtype=None,
+                 blocks_resident: int | None = None) -> Scratch:
     """Scratch for K7/K8 calls whose conv output is (n, h, w, c); a trunk
-    makes it once and passes it to every call."""
+    makes it once and passes it to every call. With ``dtype`` (the calls'
+    io dtype) the fp32 accumulator is left out where both K7 and K8 take
+    the resident route at that shape; without, the scratch serves any call.
+    ``blocks_resident`` defaults to the device's (0 for the CPU)."""
     f32 = dict(dtype=torch.float32, device=device)
     tiles = -(-h * w // TILE_M)
-    return Scratch(torch.empty((n, h * w, c), **f32),
+    if blocks_resident is None:
+        blocks_resident = resident_blocks(device)
+    tiled = dtype is None or "tiled" in (
+        conv_route(h, w, c, dtype, blocks_resident),
+        conv_route(h, w, c, dtype, blocks_resident, tail=True))
+    return Scratch(torch.empty((n, h * w, c), **f32) if tiled else None,
                    torch.empty((3, n, tiles, c), **f32),
-                   torch.empty((3, n, c), **f32))
+                   torch.empty((3, n, c), **f32),
+                   torch.empty((n, h, w, 2), **f32),
+                   torch.zeros(BARRIER_WORDS, dtype=torch.int64,
+                               device=device))
 
 
 @functools.cache
@@ -157,16 +220,41 @@ def _lib() -> ctypes.CDLL:
     dll = _build.load_library("conv_in")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dll.ducosy_conv3x3_in.restype = i
-    dll.ducosy_conv3x3_in.argtypes = [p] * 8 + [i] * 6 + [f, f, i, p]
+    dll.ducosy_conv3x3_in.argtypes = [p] * 9 + [i] * 6 + [f, f, i, i, p]
     dll.ducosy_conv_block_tail.restype = i
-    dll.ducosy_conv_block_tail.argtypes = [p] * 14 + [i] * 7 + [f, i, i, p]
+    dll.ducosy_conv_block_tail.argtypes = [p] * 16 + [i] * 7 + [f, i, i, i, p]
     dll.ducosy_conv3x3.restype = i
     dll.ducosy_conv3x3.argtypes = [p] * 6 + [i] * 5 + [p]
     dll.ducosy_conv3x3_probe.restype = i
     dll.ducosy_conv3x3_probe.argtypes = [p] * 6 + [i] * 5 + [p]
+    dll.ducosy_resident_probe.restype = i
+    dll.ducosy_resident_probe.argtypes = [p] * 15 + [i] * 8 + [p]
+    dll.ducosy_resident_blocks.restype = i
+    dll.ducosy_resident_blocks.argtypes = [ctypes.POINTER(i)]
     dll.ducosy_conv_tile_geometry.restype = None
     dll.ducosy_conv_tile_geometry.argtypes = [ctypes.POINTER(i)] * 2
     return dll
+
+
+@functools.cache
+def _resident_blocks(index: int) -> int:
+    dll, blocks = _lib(), ctypes.c_int()
+    with torch.cuda.device(index):
+        status = dll.ducosy_resident_blocks(ctypes.byref(blocks))
+    _build.check(dll, status, "resident_blocks query")
+    return blocks.value
+
+
+def resident_blocks(device) -> int:
+    """How many blocks of the resident kernels ``device`` holds at once: its
+    SM count times the occupancy the runtime reports for them (132 x 1 on an
+    H100 SXM), asked once per device; 0 for the CPU. Builds the library."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 0
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return _resident_blocks(index)
 
 
 def tile_geometry() -> tuple[int, int]:
@@ -204,14 +292,27 @@ def _check_input(what, xp, w, pad) -> None:
                          "takes CUDA tensors (CPU runs the plain path)")
 
 
-def _check_scratch(what, scratch, n, h, w, c, dev) -> Scratch:
+def _check_scratch(what, scratch, n, h, w, c, dev, tiled: bool) -> Scratch:
+    """``scratch`` (made here if None) for a call on (n, h, w, c); a call on
+    the tiled route needs its accumulator."""
     if scratch is None:
-        return make_scratch(n, h, w, c, dev)
-    if scratch.acc.shape != (n, h * w, c) or scratch.acc.device != dev:
-        raise ValueError(f"{what} kernel: scratch for "
-                         f"{tuple(scratch.acc.shape)} on {scratch.acc.device},"
-                         f" expected {(n, h * w, c)} on {dev}")
+        return make_scratch(n, h, w, c, dev, None if tiled else torch.bfloat16)
+    if scratch.partials.shape[1:] != (n, -(-h * w // TILE_M), c) \
+            or scratch.map.shape != (n, h, w, 2) \
+            or scratch.partials.device != dev:
+        raise ValueError(f"{what} kernel: scratch for map "
+                         f"{tuple(scratch.map.shape)}, C="
+                         f"{scratch.partials.shape[-1]} on "
+                         f"{scratch.partials.device}, expected "
+                         f"{(n, h, w, 2)}, C={c} on {dev}")
+    if tiled and scratch.acc is None:
+        raise ValueError(f"{what} kernel: this call takes the tiled route and "
+                         "the scratch was made without an accumulator")
     return scratch
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def kernel_weights(w, dt) -> torch.Tensor:
@@ -263,7 +364,7 @@ def _launch_conv(what, xp, w, scratch, last: int) -> Scratch:
     conv; ``last`` is its last integer argument."""
     _check_input(what, xp, w, 1)
     n, hp, wp, c = xp.shape
-    sc = _check_scratch(what, scratch, n, hp - 2, wp - 2, c, xp.device)
+    sc = _check_scratch(what, scratch, n, hp - 2, wp - 2, c, xp.device, True)
     wk = kernel_weights(w, xp.dtype)
     dll = _lib()
     with torch.cuda.device(xp.device):
@@ -289,6 +390,58 @@ def conv3x3_probe(xp, w, parts: int, scratch: Scratch) -> None:
     _launch_conv("conv3x3_probe", xp, w, scratch, parts)
 
 
+def probe_weights(w, w1, w2, wsa) -> tuple:
+    """The weights of a K7/K8 call as ``resident_probe`` takes them, laid out
+    once (bf16 w as (tap, Cout, Cin); fp32 MLP; the 7x7 taps as avg | max):
+    the probe times kernels of some tens of microseconds, which a per-call
+    layout would bury."""
+    return (kernel_weights(w, torch.bfloat16), w1.float().contiguous(),
+            w2.float().contiguous(),
+            wsa.reshape(SA_KERNEL * SA_KERNEL, 2).T.float().contiguous())
+
+
+def resident_probe(xp, weights: tuple, parts: int, tail: bool,
+                   scratch: Scratch) -> torch.Tensor:
+    """Timing probe of the bf16 resident kernels at C = 256 with parts
+    compiled out: ``parts`` sums 1 (ring, MMAs and partials), 2 (barriers,
+    merges and channel gate) and 4 (the epilogue from the registers); 7 is
+    the whole kernel. ``weights`` from ``probe_weights``. ``tail``: K8's
+    kernel with xp as both tp and x, else K7's. Only at 7 is the output
+    K7's or K8's. Counts no launch."""
+    wk, w1f, w2f, wsa2 = weights
+    if xp.dim() != 4 or xp.dtype != torch.bfloat16 or xp.shape[-1] != 256 \
+            or not xp.is_contiguous() or parts not in range(1, 8) \
+            or tuple(wk.shape) != (9, 256, 256) or wk.dtype != xp.dtype:
+        raise ValueError(f"resident_probe: {xp.dtype} {tuple(xp.shape)}, "
+                         f"parts={parts} (contiguous bfloat16 NHWC, C = 256, "
+                         "parts 1-7, weights from probe_weights)")
+    if xp.device.type != "cuda":
+        raise ValueError(f"resident_probe: input on {xp.device}; the kernel "
+                         "takes CUDA tensors")
+    n, hp, wp, c = xp.shape
+    h, wd = hp - 2, wp - 2
+    groups = sample_groups(n, h, wd, c, xp.dtype,
+                           resident_blocks(xp.device), tail=tail)
+    if not groups:
+        raise ValueError(f"resident_probe: {h} x {wd} x {c} is not on the "
+                         "resident route on this device")
+    sc = _check_scratch("resident_probe", scratch, n, h, wd, c, xp.device,
+                        False)
+    out = torch.empty_like(xp)
+    dll = _lib()
+    with torch.cuda.device(xp.device):
+        status = dll.ducosy_resident_probe(
+            xp.data_ptr(), xp.data_ptr(), wk.data_ptr(), w1f.data_ptr(),
+            w2f.data_ptr(), wsa2.data_ptr(), out.data_ptr(),
+            *(t.data_ptr() for t in sc.partials),
+            *(t.data_ptr() for t in sc.stats), sc.map.data_ptr(),
+            sc.barrier.data_ptr(), n, h, wd, c, w1f.shape[-1], parts,
+            int(tail), groups,
+            torch.cuda.current_stream(xp.device).cuda_stream)
+    _build.check(dll, status, "resident_probe launch")
+    return out
+
+
 def launch_conv3x3_in(xp, w, *, relu, pad, int8_scale, eps, scratch):
     """Validate, allocate and launch K7; counts nothing (the public wrappers
     of K7 and of its prototype count their own launches)."""
@@ -299,7 +452,8 @@ def launch_conv3x3_in(xp, w, *, relu, pad, int8_scale, eps, scratch):
     n, hp, wp, c = xp.shape
     h, wd = hp - 2, wp - 2
     dev = xp.device
-    sc = _check_scratch("conv3x3_in", scratch, n, h, wd, c, dev)
+    groups = sample_groups(n, h, wd, c, xp.dtype, resident_blocks(dev))
+    sc = _check_scratch("conv3x3_in", scratch, n, h, wd, c, dev, not groups)
     wk = kernel_weights(w, xp.dtype)
     out = torch.empty((n, h + 2 * pad, wd + 2 * pad, c), device=dev,
                       dtype=xp.dtype if int8_scale is None else torch.int8)
@@ -307,15 +461,19 @@ def launch_conv3x3_in(xp, w, *, relu, pad, int8_scale, eps, scratch):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = dll.ducosy_conv3x3_in(
-            xp.data_ptr(), wk.data_ptr(), out.data_ptr(), sc.acc.data_ptr(),
+            xp.data_ptr(), wk.data_ptr(), out.data_ptr(), _ptr(sc.acc),
             sc.partials[0].data_ptr(), sc.partials[1].data_ptr(),
-            sc.stats[0].data_ptr(), sc.stats[1].data_ptr(), n, h, wd, c, pad,
-            int(relu), float(eps),
+            sc.stats[0].data_ptr(), sc.stats[1].data_ptr(),
+            sc.barrier.data_ptr(), n, h, wd, c, pad, int(relu), float(eps),
             0.0 if int8_scale is None else INT8_GRID / int8_scale,
-            _KIND[xp.dtype], stream)
+            _KIND[xp.dtype], groups, stream)
     _build.check(dll, status, "conv3x3_in kernel launch")
     conv3x3.launches += 1
+    launch_conv3x3_in.route = "resident" if groups else "tiled"
     return out
+
+
+launch_conv3x3_in.route = None    # the route of the last K7 launch
 
 
 def conv3x3_in(xp, w, *, relu: bool = True, pad: int = 1,
@@ -365,7 +523,11 @@ def launch_conv_block_tail(tp, x, w, w1, w2, wsa, *, pad, x_pad, in_int8,
                          f"on {dev} (x_pad 0 or 1)")
     if not 0 < r <= c:
         raise ValueError(f"conv_block_tail kernel: R={r} (0 < R <= C={c})")
-    sc = _check_scratch("conv_block_tail", scratch, n, h, wd, c, dev)
+    groups = sample_groups(
+        n, h, wd, c, torch.float32 if dt == torch.float32 else tp.dtype,
+        resident_blocks(dev), tail=True)
+    sc = _check_scratch("conv_block_tail", scratch, n, h, wd, c, dev,
+                        not groups)
     wk = kernel_weights(w, dt)
     w1f = w1.to(torch.float32).contiguous()
     w2f = w2.to(torch.float32).contiguous()
@@ -379,12 +541,17 @@ def launch_conv_block_tail(tp, x, w, w1, w2, wsa, *, pad, x_pad, in_int8,
         status = dll.ducosy_conv_block_tail(
             tp.data_ptr(), x.data_ptr(), wk.data_ptr(), w1f.data_ptr(),
             w2f.data_ptr(), wsa2.data_ptr(), out.data_ptr(),
-            sc.acc.data_ptr(), *(t.data_ptr() for t in sc.partials),
-            *(t.data_ptr() for t in sc.stats), n, h, wd, c, r, pad, x_pad,
-            float(eps), int(in_int8), int(dt == torch.bfloat16), stream)
+            _ptr(sc.acc), *(t.data_ptr() for t in sc.partials),
+            *(t.data_ptr() for t in sc.stats), sc.map.data_ptr(),
+            sc.barrier.data_ptr(), n, h, wd, c, r, pad, x_pad, float(eps),
+            int(in_int8), int(dt == torch.bfloat16), groups, stream)
     _build.check(dll, status, "conv_block_tail kernel launch")
     conv3x3.launches += 1
+    launch_conv_block_tail.route = "resident" if groups else "tiled"
     return out
+
+
+launch_conv_block_tail.route = None    # the route of the last K8 launch
 
 
 def conv_block_tail(tp, x, w, w1, w2, wsa, *, pad: int = 1, x_pad: int = 1,

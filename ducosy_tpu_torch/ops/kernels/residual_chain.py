@@ -10,13 +10,16 @@ Each block (modules/model.py:68-87):
 Conv biases are not inputs: each conv feeds an InstanceNorm, whose mean
 subtraction cancels a per-channel constant exactly.
 
-The kernel is CUDA C++ (``csrc/residual_chain.cu``); the carry is far
-larger than a Hopper block's shared memory, so each block runs as six
-launches that split every whole-image reduction into per-tile partials and
-a later apply step (see the source note there). ``residual_chain_plain``
-is the TPU package's XLA composition (conv_in.py:501-536) in plain
-PyTorch, with optional conv biases: per block ``conv3x3_in_plain`` then
-``conv_block_tail_plain`` of ops/kernels/conv_in.py.
+The kernel is CUDA C++ (``csrc/residual_chain.cu``): each block is K7's
+launch (conv1 + IN + ReLU + pad into t) then K8's (conv2 + CBAM tail + skip +
+pad), each half by the route ``conv_in.conv_route`` gives it: two
+cooperative launches a block where a sample's tiles fit on the card at once
+(bf16), with the fp32 accumulator held in registers, else six launches that
+send it through device memory (see the source note there).
+``residual_chain_plain`` is the TPU package's XLA composition
+(conv_in.py:501-536) in plain PyTorch, with optional conv biases: per block
+``conv3x3_in_plain`` then ``conv_block_tail_plain`` of
+ops/kernels/conv_in.py.
 
 K1q (``quant=True``, conv_in.py:366-369, :380-386): the intermediate t is
 written int8 on the shifted grid and conv2 runs int8 x int8 -> int32. The
@@ -39,13 +42,16 @@ import torch
 from ducosy_tpu_torch.models.layers import EPS_INSTANCE_NORM
 from ducosy_tpu_torch.ops.kernels import _build
 from ducosy_tpu_torch.ops.kernels.block_tail import SA_KERNEL
-from ducosy_tpu_torch.ops.kernels.conv_in import (
+from ducosy_tpu_torch.ops.kernels.conv_in import (  # noqa: F401 (TILE_M)
     TILE_M,
     TILE_N,
     conv3x3,
     conv3x3_in_plain,
     conv_block_tail_plain,
     kernel_weights,
+    make_scratch,
+    resident_blocks,
+    sample_groups,
 )
 from ducosy_tpu_torch.ops.quant import INT8_GRID, INT8_NORM_SCALE
 
@@ -93,8 +99,8 @@ def _lib() -> ctypes.CDLL:
     dll = _build.load_library("residual_chain")
     p, i = ctypes.c_void_p, ctypes.c_int
     dll.ducosy_residual_block.restype = i
-    dll.ducosy_residual_block.argtypes = [p] * 15 + [i] * 6 + [
-        ctypes.c_float, ctypes.c_float, i, p]
+    dll.ducosy_residual_block.argtypes = [p] * 17 + [i] * 6 + [
+        ctypes.c_float, ctypes.c_float, i, i, i, p]
     return dll
 
 
@@ -146,8 +152,6 @@ def residual_chain(xp, was, wbs, w1s, w2s, wsas, *, pad: int = 1,
     h, w = hp - 2, wp - 2
     k, r = was.shape[0], w1s.shape[-1]
     dt, dev = xp.dtype, xp.device
-    tiles = -(-h * w // TILE_M)
-    f32 = dict(dtype=torch.float32, device=dev)
     # weights in the kernel's layouts: the convs' as kernel_weights lays
     # them out (bf16 and K1q's int8 conv2 (tap, Cout, Cin), fp32 (tap, Cin,
     # Cout)); spatial gate (avg taps | max taps); MLP in fp32
@@ -156,7 +160,6 @@ def residual_chain(xp, was, wbs, w1s, w2s, wsas, *, pad: int = 1,
     w2 = w2s.to(torch.float32).contiguous()
     wsa = wsas.reshape(k, SA_KERNEL * SA_KERNEL, 2).transpose(1, 2) \
         .to(torch.float32).contiguous()
-    acc = torch.empty((n, h * w, c), **f32)
     tp_dtype = torch.int8 if quant else dt
     if tp is None:
         tp = torch.empty((n, hp, wp, c), dtype=tp_dtype, device=dev)
@@ -165,8 +168,12 @@ def residual_chain(xp, was, wbs, w1s, w2s, wsas, *, pad: int = 1,
         raise ValueError(f"residual_chain kernel: tp {tuple(tp.shape)} "
                          f"{tp.dtype}, expected a contiguous "
                          f"{tuple(xp.shape)} {tp_dtype} tensor on {dev}")
-    partials = torch.empty((3, n, tiles, c), **f32)
-    stats = torch.empty((3, n, c), **f32)
+    # each half of a block by its own route (ops/kernels/conv_in.py:
+    # conv_route); the fp32 accumulator exists only where one is tiled
+    blocks = resident_blocks(dev)
+    groups_in = sample_groups(n, h, w, c, dt, blocks)
+    groups_tail = sample_groups(n, h, w, c, dt, blocks, tail=True)
+    sc = make_scratch(n, h, w, c, dev, dt, blocks)
     int8_k = INT8_GRID / INT8_NORM_SCALE if quant else 0.0
     dll = _lib()
     with torch.cuda.device(dev):
@@ -178,17 +185,19 @@ def residual_chain(xp, was, wbs, w1s, w2s, wsas, *, pad: int = 1,
             status = dll.ducosy_residual_block(
                 xp.data_ptr(), wa[j].data_ptr(), wb[j].data_ptr(),
                 w1[j].data_ptr(), w2[j].data_ptr(), wsa[j].data_ptr(),
-                out.data_ptr(), acc.data_ptr(), tp.data_ptr(),
-                partials[0].data_ptr(), partials[1].data_ptr(),
-                partials[2].data_ptr(), stats[0].data_ptr(),
-                stats[1].data_ptr(), stats[2].data_ptr(),
-                n, h, w, c, r, p, float(eps), int8_k,
-                int(dt == torch.bfloat16), stream)
+                out.data_ptr(), 0 if sc.acc is None else sc.acc.data_ptr(),
+                tp.data_ptr(), *(t.data_ptr() for t in sc.partials),
+                *(t.data_ptr() for t in sc.stats), sc.map.data_ptr(),
+                sc.barrier.data_ptr(), n, h, w, c, r, p, float(eps), int8_k,
+                int(dt == torch.bfloat16), groups_in, groups_tail, stream)
             _build.check(dll, status, f"residual_chain block {j} launch")
             conv3x3.launches += 2            # conv1 and conv2 of the block
             xp = out
+    residual_chain.route = "resident" if groups_in and groups_tail else \
+        "tiled" if not (groups_in or groups_tail) else "mixed"
     residual_chain.launches += 1
     return xp
 
 
 residual_chain.launches = 0
+residual_chain.route = None    # the route of the last K1 call's blocks

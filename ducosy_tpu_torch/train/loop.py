@@ -62,6 +62,17 @@ def _to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
+def _export_trace(profiler, profile_dir: str) -> None:
+    """Stop ``profiler`` and write its chrome trace to
+    ``profile_dir/trace.json``; returns None, the loop's "not tracing"."""
+    profiler.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    trace = os.path.join(profile_dir, "trace.json")
+    profiler.export_chrome_trace(trace)
+    print(f"profiler trace written to {trace}")
+    return None
+
+
 def train_cycle_gan(cfg: TrainConfig, target_range: str,
                     model_cfg: ModelConfig = ModelConfig(),
                     loss_cfg: LossConfig = LossConfig(), *,
@@ -157,12 +168,7 @@ def train_cycle_gan(cfg: TrainConfig, target_range: str,
                     profiler = torch.profiler.profile()
                     profiler.start()
                 elif step_idx == cfg.profile_stop and profiler is not None:
-                    profiler.stop()
-                    os.makedirs(cfg.profile_dir, exist_ok=True)
-                    trace = os.path.join(cfg.profile_dir, "trace.json")
-                    profiler.export_chrome_trace(trace)
-                    profiler = None
-                    print(f"profiler trace written to {trace}")
+                    profiler = _export_trace(profiler, cfg.profile_dir)
             t0 = time.perf_counter()
             batch = _to_device(host_batch, dev)
             step_fn = step_for(host_batch)
@@ -203,6 +209,10 @@ def train_cycle_gan(cfg: TrainConfig, target_range: str,
                         "checkpoint_nan.pt)")
                 logger.log({"epoch": epoch + 1, "step": step_idx, "lr": lr,
                             "steps_per_s": timer.rate(), **last_metrics})
+
+        if profiler is not None:
+            # the epoch ended before step profile_stop: keep what was traced
+            profiler = _export_trace(profiler, cfg.profile_dir)
 
         # ---- validation + image grid (trainer.py:543-547)
         val_loss = float("nan")

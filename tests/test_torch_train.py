@@ -421,6 +421,28 @@ def test_profile_dir_writes_a_trace(tmp_path):
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
 
 
+def test_profile_dir_writes_a_trace_when_the_epoch_ends_early(tmp_path):
+    """An epoch shorter than profile_stop still leaves a trace: the loop
+    stops and exports at the end of the first epoch if the profiler is
+    running; a window that never starts writes nothing."""
+    write_dataset(str(tmp_path / "data"), n_patients=3, n_slices=2,
+                  size=IMG)
+    cfg = replace(CFG, data_root=str(tmp_path / "data"),
+                  dataset_names="SynthSet", training_dir=str(tmp_path / "td"),
+                  resume="", val_split=0.34, num_workers=2, epochs=1,
+                  profile_dir=str(tmp_path / "prof"), profile_start=1,
+                  profile_stop=8)
+    out = tloop.train_cycle_gan(cfg, "soft_tissue", MODEL, device="cpu",
+                                max_steps_per_epoch=2)
+    assert len(out["step_seconds"]) == 2
+    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+    late = replace(cfg, profile_dir=str(tmp_path / "late"), profile_start=5,
+                   training_dir=str(tmp_path / "td2"))
+    tloop.train_cycle_gan(late, "soft_tissue", MODEL, device="cpu",
+                          max_steps_per_epoch=2)
+    assert not (tmp_path / "late").exists()
+
+
 def test_cli_defaults_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
