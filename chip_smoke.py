@@ -9,8 +9,14 @@ drives the serving path the way a user does, at full model width:
   1. the card (nvidia-smi name, power limit), torch/CUDA versions, and the
      kernel build time with nvcc's register/spill report;
   2. K2 (instance_norm) against its plain PyTorch version at the serving
-     shapes: down1 (16, 256, 256, 128) pad 0 and down2 (16, 128, 128, 256)
-     pad 1, in fp32 and bf16, with max |diff| and CUDA-event times;
+     shapes: down1 = up1 (16, 256, 256, 128) pad 0, down2 (16, 128, 128,
+     256) pad 1, the stem = up2 (16, 512, 512, 64) pad 0, the training
+     trunk's (8, 128, 128, 256) pad 1, a ragged (3, 75, 93, 64) pad 1 and
+     C = 192, in fp32 and bf16, with max |diff|, CUDA-event times, the
+     bound and one F.instance_norm + relu; then K2 by parts at down1, down2
+     and the stem (bf16): the original three launches and the kernel with
+     parts left out, without overlapping launches and in groups that fit
+     the L2, in alternating rounds;
   3. K1 (residual_chain) against its plain version on a (16, 130, 130, 256)
      carry: k = 3 and k = 1, pad 1 and pad 0, fp32 and bf16;
   4. two seeded ResNet-9 + CBAM generators (1 channel, base 64) in
@@ -80,9 +86,10 @@ drives the serving path the way a user does, at full model width:
      slices/s in rounds that alternate mega, mega on the tiled route, chain
      and plain (a routed rate more than 3% below its tiled reading fails;
      phases 4 and 4q likewise), a profile of one patient that fails if a
-     kernel of the tiled route's light passes ran under a resident trunk, then
-     quant="trunk" and "full" under mega with counts, slices/s beside the
-     chain trunk's and both fidelity taps against the bf16 engine;
+     kernel of the tiled route's light passes or K2's original launches ran
+     under a resident trunk or K2's two kernels ran other than once a call,
+     then quant="trunk" and "full" under mega with counts, slices/s beside
+     the chain trunk's and both fidelity taps against the bf16 engine;
   8. the generate CLI serves phase 7's trained 3-channel SOFT_TISSUE
      snapshot with a seeded 2-channel LUNG generator on one synthetic 512^2
      DICOM patient, masks generated and prefetched on the host: read back
@@ -111,7 +118,6 @@ ROOT = Path(__file__).resolve().parent
 N = 16                 # slices per generator call on the serving path
 SLICES, SIZE = 32, 512  # phantom patient
 SEED = 0
-K2_CASES = (("down1", (N, 256, 256, 128), 0), ("down2", (N, 128, 128, 256), 1))
 K1_SHAPE = (N, 128, 128, 256)   # carry interior; R = C / 16
 
 # Tolerances, set from the dtypes before any run:
@@ -221,6 +227,33 @@ def conv_flop(n: int, hw: int, c: int) -> float:
 
 TRAIN_N = 8                      # training batch
 TRAIN_SHAPE = (TRAIN_N, 128, 128, 256)   # trunk activation; R = C / 16
+# K2 (name, shape, pad): the serving norms (down1 = up1; stem = up2), the
+# training trunk's first norm of a block, a ragged H*W (6975 pixels in 28
+# statistics tiles of 250: the last holds 225) at C = 64, and C = 192 (a
+# block of 21 pixels x 24 lanes: 504 of its 512 threads own channels)
+K2_CASES = (("down1", (N, 256, 256, 128), 0), ("down2", (N, 128, 128, 256), 1),
+            ("stem", (N, 512, 512, 64), 0), ("train", TRAIN_SHAPE, 1),
+            ("ragged", (3, 75, 93, 64), 1), ("c192", (2, 50, 70, 192), 0))
+# K2 by parts (phase 2) at these shapes, bf16: (label, design, parts, plan)
+# through k2.probe. Design 0 is the original three launches (bit 1 the tile
+# statistics, 2 the serial finalize, 4 the per-pixel apply); design 1 the
+# kernel (1 the tile statistics, 2 their merge, 4 the apply), design 2 the
+# kernel without programmatic dependent launch. Plans: the kernel's own
+# (None: the batch at once, x read twice) or "L2" (groups of samples within
+# L2_SHARE of the L2, x read once if the L2 holds a group).
+K2_PART_CASES = ("down1", "down2", "stem")
+L2_SHARE = 0.7
+K2_PROBES = (("original: whole", 0, 7, None), ("tile statistics", 0, 1, None),
+             ("finalize", 0, 2, None), ("per-pixel apply", 0, 4, None),
+             ("groups in L2: whole", 1, 7, "L2"),
+             ("groups in L2 without PDL: whole", 2, 7, "L2"),
+             ("whole", 1, 7, None), ("whole without PDL", 2, 7, None),
+             ("tile statistics alone", 1, 1, None),
+             ("statistics and their merge", 1, 3, None),
+             ("apply alone", 1, 4, None))
+# K2 calls of one generator call on the serving path: the stem, down1,
+# down2 (with the pad), up1 and up2 norms; under quant="full" down2's alone
+K2_PER_GEN = {None: 5, "trunk": 5, "full": 1}
 TAIL_CASES = ((1, 1), (0, 1))    # (pad, x_pad): blocks 1-8, block 9
 # Training-kernel tolerances, set from the dtypes before any run:
 #  K3 fp32: fp32 statistics and sums on both sides, summation order only:
@@ -348,6 +381,25 @@ def compare(got, ref, atol: float, rtol: float):
     return ok, float(err.max()), float(err.mean())
 
 
+def k2_input(shape, gen, dev):
+    """Per-channel offset and scale around unit noise, fp32."""
+    import torch
+
+    c = shape[-1]
+    offset = torch.randn(c, generator=gen, device=dev) * 2.0
+    scale = torch.rand(c, generator=gen, device=dev) * 1.5 + 0.5
+    return torch.randn(shape, generator=gen, device=dev) * scale + offset
+
+
+def k2_bound(shape, pad: int, itemsize: int):
+    """K2's bound: x read once, the padded output written once, 8 fp32
+    operations an element."""
+    n, h, w, c = shape
+    inner = n * h * w * c
+    out = n * (h + 2 * pad) * (w + 2 * pad) * c * itemsize
+    return bound(inner * itemsize + out, fp32=8 * inner)
+
+
 def check_instance_norm(k2, dev, records):
     import torch
     import torch.nn.functional as F
@@ -355,38 +407,81 @@ def check_instance_norm(k2, dev, records):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     failures = []
     for name, shape, pad in K2_CASES:
-        c = shape[-1]
-        offset = torch.randn(c, generator=gen, device=dev) * 2.0
-        scale = torch.rand(c, generator=gen, device=dev) * 1.5 + 0.5
-        base = torch.randn(shape, generator=gen, device=dev) * scale + offset
+        base = k2_input(shape, gen, dev)
         for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype)[6:]
             x = base.to(dtype)
             got = k2.instance_norm(x, relu=True, pad=pad)
             ref = k2.instance_norm_plain(x, relu=True, pad=pad)
             torch.cuda.synchronize()
-            atol, rtol = TOL[("k2", str(dtype)[6:])]
+            atol, rtol = TOL[("k2", dname)]
             ok, emax, emean = compare(got, ref, atol, rtol)
             ms = cuda_ms(lambda: k2.instance_norm(x, relu=True, pad=pad), 20)
             plain_ms = cuda_ms(
                 lambda: k2.instance_norm_plain(x, relu=True, pad=pad), 20)
-            log(f"K2 {name} {tuple(shape)} pad={pad} {str(dtype)[6:]}: "
-                f"max|d|={emax:.3e} mean|d|={emean:.3e} (atol {atol}, rtol "
-                f"{rtol}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+            # the library's call for the same function without the pad:
+            # timed here as a yardstick, used nowhere in the port
+            xc = x.permute(0, 3, 1, 2)
+            lib_ms = cuda_ms(lambda: F.relu(F.instance_norm(xc)), 20)
+            bnd = k2_bound(shape, pad, x.element_size())
+            pl = k2.device_plan(x)
+            share = bnd["bound_ms"] / ms
+            log(f"K2 {name} {tuple(shape)} pad={pad} {dname} [group "
+                f"{pl.group}, {pl.tiles} tiles of {pl.tile} pixels, "
+                f"{pl.blocks} blocks]: max|d|={emax:.3e} mean|d|={emean:.3e} "
+                f"(atol {atol}, rtol {rtol}) kernel {ms:.4f} ms = {share:.0%}"
+                f" of its bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+                f"plain {plain_ms:.4f} ms, F.instance_norm + relu"
+                f"{' (no pad)' if pad else ''} {lib_ms:.4f} ms "
                 f"{'ok' if ok else 'FAIL'}")
-            rec = records[("k2", name, str(dtype)[6:])] = dict(
-                max_abs_err=emax, ms=ms, plain_ms=plain_ms)
-            if pad == 0:
-                # the library's call for the same function (no pad): timed
-                # here as a yardstick, used nowhere in the port
-                xc = x.permute(0, 3, 1, 2)
-                rec["library_ms"] = cuda_ms(
-                    lambda: F.relu(F.instance_norm(xc)), 20)
-                log(f"K2 {name}: F.instance_norm + relu "
-                    f"{rec['library_ms']:.4f} ms")
+            records[("k2", name, dname)] = dict(
+                max_abs_err=emax, ms=ms, plain_ms=plain_ms,
+                library_ms=None if pad else lib_ms, bound=bnd)
             if not ok:
                 failures.append(f"K2 {name} {dtype}")
+        del base, x, got, ref, xc
+    torch.cuda.empty_cache()
     if failures:
         fail(f"kernel disagrees with its plain version: {failures}")
+
+
+def k2_probe_plan(k2, x, variant):
+    """The plan of a K2_PROBES row for x."""
+    import torch
+
+    pl = k2.device_plan(x)
+    if variant != "L2":
+        return pl
+    l2 = torch.cuda.get_device_properties(x.device).L2_cache_size
+    return k2.plan(*x.shape, x.element_size(), pl.blocks, int(L2_SHARE * l2))
+
+
+def check_k2_parts(k2, dev, records, designs=(0, 1, 2)):
+    """K2 by parts at K2_PART_CASES, bf16: the K2_PROBES rows of ``designs``,
+    median of 3 rounds that alternate every row. A part alone that reads
+    what another part writes reads stale scratch: its time is right, its
+    output is not."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    rows = [r for r in K2_PROBES if r[1] in designs]
+    for name, shape, pad in K2_CASES:
+        if name not in K2_PART_CASES:
+            continue
+        x = k2_input(shape, gen, dev).to(torch.bfloat16)
+        plans = {v: k2_probe_plan(k2, x, v) for *_, v in rows}
+        rounds = {r[0]: [] for r in rows}
+        for _ in range(3):
+            for label, d, parts, v in rows:
+                rounds[label].append(cuda_ms(
+                    lambda: k2.probe(x, d, parts, pad=pad, pl=plans[v]), 10))
+        ms = {k: statistics.median(v) for k, v in rounds.items()}
+        records[("k2parts", name)] = ms
+        log(f"K2 {name} {tuple(shape)} pad={pad} bf16 by parts (median of 3 "
+            "alternating rounds; the original launches, then the kernel): "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
+        del x
+        torch.cuda.empty_cache()
 
 
 def check_residual_chain(k1, dev, records):
@@ -521,7 +616,7 @@ def run_engine_phase(k1, k2, dev, st, lung, records):
                 "instance_norm": k2.instance_norm.launches,
                 "conv3x3": k1.conv3x3.launches}
     want = {"residual_chain": 2 * 3 * n_chunks,
-            "instance_norm": 2 * 2 * n_chunks,
+            "instance_norm": 2 * K2_PER_GEN[None] * n_chunks,
             "conv3x3": 2 * 2 * BLOCKS * n_chunks}
     log(f"engine bf16 chain: launches {launches} (expected {want})")
     if launches != want:
@@ -673,10 +768,7 @@ def check_k2p(k2, dev, records):
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     failures = []
     shape = K2_CASES[1][1]                   # down2 (N, 128, 128, 256)
-    c = shape[-1]
-    x = (torch.randn(shape, generator=gen, device=dev)
-         * (torch.rand(c, generator=gen, device=dev) * 1.5 + 0.5)
-         + torch.randn(c, generator=gen, device=dev) * 2.0).to(torch.bfloat16)
+    x = k2_input(shape, gen, dev).to(torch.bfloat16)
     got = k2.instance_norm_int8(x, pad=1)
     ref = k2.instance_norm_int8_plain(x, pad=1)
     torch.cuda.synchronize()
@@ -691,10 +783,7 @@ def check_k2p(k2, dev, records):
                               ms=ms, plain_ms=plain_ms)
     if not ok:
         failures.append("K2 int8")
-    c = K2P_SHAPE[-1]
-    base = (torch.randn(K2P_SHAPE, generator=gen, device=dev)
-            * (torch.rand(c, generator=gen, device=dev) * 1.5 + 0.5)
-            + torch.randn(c, generator=gen, device=dev) * 2.0)
+    base = k2_input(K2P_SHAPE, gen, dev)
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype)[6:]
         x = base.to(dtype)
@@ -1086,24 +1175,24 @@ def run_proto_phase(proto, k7, dev, records):
         fail("the prototype bench launched no kernel")
 
 
-# device kernels of the tiled route's light passes over the trunk's fp32
-# accumulator: none may run where K7 and K8 are resident (K2's own
-# norm_apply and finalize_stats read the io dtype and stay)
-TILED_ONLY = ("channel_gate", "spatial_tail", "norm_apply<float",
-              "norm_apply_int8<float")
+# device kernels that may not run on the serving path under a resident
+# trunk: the tiled route's light passes over the trunk's fp32 accumulator
+# and K2's original launches (K2 is in_stats + in_apply)
+STRAY = ("channel_gate", "spatial_tail", "norm_apply", "finalize_stats")
 
 
-def profile_patient(run, label: str, resident_k2: int | None = None) -> dict:
+def profile_patient(run, label: str, k2_launches: int | None = None) -> dict:
     """One warm patient under torch.profiler: device-busy time (the sum of
     the kernels' and copies' durations; the engine uses one stream) and the
-    time by kernel name, logged with the ten largest names. The idle share
-    is taken against the traced run's own device span, from the start of
-    its first device event to the end of its last, so the host time before
-    the first kernel and after the last copy is outside it. Where the
-    profiler records no device event the numbers are "not measured".
-    Times are not judged. With ``resident_k2`` (the K2 launches of a patient
-    whose trunk runs resident) the run fails if a kernel of the tiled
-    route's light passes shows, or finalize_stats beyond K2's own."""
+    time by kernel name, logged with the ten largest names and K2's two
+    kernels. The idle share is taken against the traced run's own device
+    span, from the start of its first device event to the end of its last,
+    so the host time before the first kernel and after the last copy is
+    outside it. Where the profiler records no device event the numbers are
+    "not measured". Times are not judged. With ``k2_launches`` (K2's calls
+    in a patient whose trunk runs resident) the run fails if a STRAY kernel
+    shows, or if K2's in_stats or in_apply launches are not that count (one
+    pair a call: N = 16 <= the SM count)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1135,17 +1224,23 @@ def profile_patient(run, label: str, resident_k2: int | None = None) -> dict:
         f"{100 * (1 - busy / span):.1f}% of the span, the port's kernels "
         f"{ours:.1f} ms ({100 * ours / busy:.1f}% of busy)")
     for name, ms in sorted(by.items(), key=lambda kv: -kv[1])[:10]:
-        log(f"  {ms:8.2f} ms {100 * ms / busy:5.1f}%  {name[:90]}")
-    if resident_k2 is not None:
-        stray = [k for k in by if any(t in k for t in TILED_ONLY)]
-        finalize = sum(v for k, v in count.items() if "finalize_stats" in k)
-        log(f"profile {label}: kernels of the tiled route's light passes: "
-            f"{stray or 'none'}; finalize_stats launches {finalize} (K2's "
-            f"own: {resident_k2})")
-        if stray or finalize != resident_k2:
-            fail(f"profile {label}: the resident trunk ran tiled-route "
-                 f"kernels {stray}, finalize_stats x{finalize}")
-    return dict(span_ms=span, busy_ms=busy, ours_ms=ours)
+        log(f"  {ms:8.2f} ms {100 * ms / busy:5.1f}%  {name[:160]}")
+    # K2's kernels (the second overlaps the first: their sum exceeds K2's
+    # share of the span)
+    k2_ms = {k: sum(v for n, v in by.items() if f"::{k}<" in n)
+             for k in ("in_stats", "in_apply")}
+    k2_n = {k: sum(v for n, v in count.items() if f"::{k}<" in n)
+            for k in ("in_stats", "in_apply")}
+    log(f"profile {label}: K2 in_stats x{k2_n['in_stats']} "
+        f"{k2_ms['in_stats']:.2f} ms, in_apply x{k2_n['in_apply']} "
+        f"{k2_ms['in_apply']:.2f} ms")
+    if k2_launches is not None:
+        stray = [k for k in by if any(t in k for t in STRAY)]
+        log(f"profile {label}: stray kernels {stray or 'none'}")
+        if stray or set(k2_n.values()) != {k2_launches}:
+            fail(f"profile {label}: the resident trunk ran {stray}; K2 "
+                 f"launches {k2_n}, expected {k2_launches} each")
+    return dict(span_ms=span, busy_ms=busy, ours_ms=ours, k2_ms=k2_ms)
 
 
 def run_mega_engine_phase(k1, k2, k7, dev, st, lung, records):
@@ -1212,7 +1307,7 @@ def run_mega_engine_phase(k1, k2, k7, dev, st, lung, records):
         return {k: statistics.median(v) for k, v in rounds.items()}
 
     mega = engine("mega")
-    out_mega = counted(mega, "bf16", 2)
+    out_mega = counted(mega, "bf16", K2_PER_GEN[None])
     chain, plain = engine("chain"), engine("plain")
     ref_out, _ = run(chain)
     run(plain)
@@ -1226,10 +1321,11 @@ def run_mega_engine_phase(k1, k2, k7, dev, st, lung, records):
     del plain
     resident = k7.sample_groups(N, *K1_SHAPE[1:], torch.bfloat16,
                                 k7.resident_blocks(dev), tail=True) > 0
-    k2_calls = lambda per_gen: 2 * per_gen * n_chunks if resident else None
+    k2_calls = lambda quant: 2 * K2_PER_GEN[quant] * n_chunks if resident \
+        else None
     for name, eng in (("mega", mega), ("chain", chain)):
         records[("profile", name)] = profile_patient(
-            lambda: run(eng), f"bf16 {name}", k2_calls(2))
+            lambda: run(eng), f"bf16 {name}", k2_calls(None))
     with tiled_route(k1, k7):
         records[("profile", "mega, tiled route")] = profile_patient(
             lambda: run(mega), "bf16 mega, tiled route")
@@ -1246,7 +1342,7 @@ def run_mega_engine_phase(k1, k2, k7, dev, st, lung, records):
 
     for quant in ("trunk", "full"):
         eng = engine("mega", quant)
-        out = counted(eng, f"quant={quant}", 2 if quant == "trunk" else 1)
+        out = counted(eng, f"quant={quant}", K2_PER_GEN[quant])
         final = dhu_stats(out, ref_out)
         sub = vol[:N]
         raw_ref = chain.generate_batch(sub, 1.0, -1024.0)
@@ -1267,8 +1363,7 @@ def run_mega_engine_phase(k1, k2, k7, dev, st, lung, records):
         check_not_slower(f"quant={quant}",
                          records[("mega_slices_per_s", quant)], "mega")
         records[("profile", quant)] = profile_patient(
-            lambda: run(eng), f"quant={quant} mega",
-            k2_calls(2 if quant == "trunk" else 1))
+            lambda: run(eng), f"quant={quant} mega", k2_calls(quant))
         del eng
         torch.cuda.empty_cache()
 
@@ -1319,7 +1414,7 @@ def run_quant_engine_phase(k1, k2, k4, dev, st, lung, records):
         eng = engines[quant] = engine(quant)
         out, got = counted(eng)
         want = {"residual_chain": 2 * 3 * n_chunks,
-                "instance_norm": 2 * (2 if quant == "trunk" else 1) * n_chunks,
+                "instance_norm": 2 * K2_PER_GEN[quant] * n_chunks,
                 "instance_norm_int8": 0, "block_tail": 0}
         log(f"engine quant={quant} bf16 chain: launches {got} (expected "
             f"{want})")
@@ -1422,7 +1517,8 @@ def run_cli_phase(k1, k2, st, lung, flags=()):
         secs = time.perf_counter() - t0
         n_chunks = -(-SLICES // N)
         got = (k1.residual_chain.launches, k2.instance_norm.launches)
-        if done != 1 or got != (2 * 3 * n_chunks, 2 * 2 * n_chunks):
+        if done != 1 or got != (2 * 3 * n_chunks,
+                                2 * K2_PER_GEN[None] * n_chunks):
             fail(f"CLI: {done} patients, launches {got}")
         out_dir = Path(tmp, "output", "Smoke", "patient00")
         files = sorted(out_dir.glob("*.dcm"))
@@ -1703,7 +1799,8 @@ def run_masked_cli_phase(k1, k2, dev, tmp: Path):
     secs = time.perf_counter() - t0
     n_chunks = -(-SLICES // N)
     got = (k1.residual_chain.launches, k2.instance_norm.launches)
-    if done != 1 or got != (2 * 3 * n_chunks, 2 * 2 * n_chunks):
+    if done != 1 or got != (2 * 3 * n_chunks,
+                            2 * K2_PER_GEN[None] * n_chunks):
         fail(f"masked CLI: {done} patients, launches {got}")
     files = sorted((tmp / "output8" / "Smoke" / "patient00").glob("*.dcm"))
     if len(files) != SLICES:
@@ -1739,7 +1836,7 @@ def kernel_records(records) -> list:
     carry = n * (hw + 2) ** 2 * c * 2.0         # padded bf16 trunk tensor
     inner = n * hw * hw * c * 2.0
     wts = 9 * c * c                              # one 3x3 kernel's elements
-    d1 = float(np.prod(K2_CASES[0][1]))          # down1 elements
+    k2_rec = lambda name: records[("k2", name, "bfloat16")]
     k2_launches = records["launches"]["instance_norm"]
     tn = TRAIN_N
     t_in, t_pad = tn * hw * hw * c, tn * (hw + 2) ** 2 * c
@@ -1757,8 +1854,7 @@ def kernel_records(records) -> list:
          records[("k1", 3, 1, "bfloat16")],
          bound(2 * carry + 3 * 2 * wts * 2, bf16=6 * cf), None),
         ("instance_norm", "instance_norm.cu", pallas + "instance_norm.py:206",
-         k2_launches, records[("k2", "down2", "bfloat16")],
-         bound(inner + carry, fp32=8 * inner / 2), None),
+         k2_launches, k2_rec("down2"), k2_rec("down2")["bound"], None),
         ("instance_norm_bwd", "instance_norm_bwd.cu",
          pallas + "instance_norm.py:297", train["instance_norm_bwd"],
          records[("k3", "bfloat16")],
@@ -1802,13 +1898,19 @@ def kernel_records(records) -> list:
          records[("p2", 8, "bfloat16")],
          bound(3 * carry8 + wts * 2, bf16=cf8), None),
         # the same wrapper and count as "instance_norm" above (the serving
-        # path calls it once at each shape per generator call), at the shape
+        # path calls it at each shape per generator call), at the shapes
         # that one library call computes too
-        ("instance_norm (K2 at down1, pad 0)", "instance_norm.cu",
-         pallas + "instance_norm.py:206", k2_launches,
-         records[("k2", "down1", "bfloat16")],
-         bound(2 * d1 * 2, fp32=8 * d1),
-         records[("k2", "down1", "bfloat16")]["library_ms"]),
+        ("instance_norm (K2 at down1 and up1, pad 0)", "instance_norm.cu",
+         pallas + "instance_norm.py:206", k2_launches, k2_rec("down1"),
+         k2_rec("down1")["bound"], k2_rec("down1")["library_ms"]),
+        ("instance_norm (K2 at the stem and up2, pad 0)", "instance_norm.cu",
+         pallas + "instance_norm.py:206", k2_launches, k2_rec("stem"),
+         k2_rec("stem")["bound"], k2_rec("stem")["library_ms"]),
+        # each training block's first norm: the launches of phase 7's tail
+        # trunk (remat off)
+        ("instance_norm (K2 at the training shape, pad 1)", "instance_norm.cu",
+         pallas + "instance_norm.py:206", train["instance_norm"],
+         k2_rec("train"), k2_rec("train")["bound"], None),
     ]
     rows.append(
         # the conv launch inside K1, K6, K7, K8, P1 and P2, alone
@@ -1893,6 +1995,7 @@ def main() -> None:
         log(f"phase {name} done in {time.perf_counter() - t0:.1f} s")
 
     phase("2", check_instance_norm, k2, dev, records)
+    phase("2 parts", check_k2_parts, k2, dev, records)
     phase("3", check_residual_chain, k1, dev, records)
     phase("3q K1q", check_k1q, k1, dev, records)
     phase("3q K2p", check_k2p, k2, dev, records)

@@ -6,21 +6,26 @@ key layout (``model.N.*``, see models/convert.py) and a released
 checkpoint loads with ``load_state_dict``. The forward is written out
 rather than run through the Sequential: it takes and returns NHWC, keeps
 InstanceNorm statistics in fp32 under bf16, and routes the serving path's
-two TPU-kernel sites to the hand-written kernels:
+TPU-kernel sites to the hand-written kernels:
 
-  trunk="chain"  down1 norm -> K2; down2 norm + the trunk's first reflect
-                 pad -> K2 (pad 1); the residual trunk -> K1 in groups of
-                 3 blocks (one block per call below 3 blocks), the last
-                 group without a trailing pad — the JAX serving engine's
-                 "chain3" placement (models/fused.py:603-639,
-                 infer/engine.py:200-206). Stem, up1, up2 and head stay
-                 plain convs and norms, as the JAX package left them to XLA.
-  trunk="mega"   the encoder norms as under "chain"; each residual block is
-                 two kernels, K7 (conv1 + IN + ReLU + pad 1) then K8 (conv2 +
-                 IN + CBAM + skip + pad 1, pad 0 on the last block), with one
-                 scratch for the whole trunk: the JAX packed forward's
-                 trunk="mega" (models/fused.py:616-623, :654-669). Serving
-                 only, as "chain".
+  trunk="chain"  every encoder/decoder norm + ReLU -> K2: the stem, down1,
+                 up1 and up2 norms (pad 0), and down2's with the trunk's
+                 first reflect pad (pad 1); the residual trunk -> K1 in
+                 groups of 3 blocks (one block per call below 3 blocks), the
+                 last group without a trailing pad — the JAX serving
+                 engine's "chain3" placement (models/fused.py:603-639,
+                 infer/engine.py:200-206). The JAX package's serving forward
+                 routes the non-trunk norms through its Pallas IN too
+                 (fused.py:551-583), the stem/up1/up2 ones only where a
+                 sample's channels fit its VMEM window (fused.py:60-69);
+                 K2 tiles H x W and has no such limit. The convs and the
+                 head stay plain.
+  trunk="mega"   the encoder/decoder norms as under "chain"; each residual
+                 block is two kernels, K7 (conv1 + IN + ReLU + pad 1) then K8
+                 (conv2 + IN + CBAM + skip + pad 1, pad 0 on the last block),
+                 with one scratch for the whole trunk: the JAX packed
+                 forward's trunk="mega" (models/fused.py:616-623, :654-669).
+                 Serving only, as "chain".
   trunk="tail"   the training trunk, the JAX trunk="pallas" placement with
                  encoder_fused off (models/fused.py:615-623, :688-698):
                  down2's norm is plain with a standalone reflect pad; each
@@ -44,8 +49,11 @@ space-to-depth packing:
   "full"   also the stem (symmetric grid at scale 1.0), down1, down2, up2
            (four sub-pixel phase convs, weights quantized per phase and
            output channel) and the head at static scales, with -128 pads
-           on the shifted grid (fused.py:529-534, 587-601, 725-738). up1
-           stays in the compute dtype; the down2 norm + pad stays K2.
+           on the shifted grid (fused.py:529-534, 587-601, 725-738); their
+           norms quantize the fp32 value (ops/quant.py in_relu_int8) where
+           K2's int8 write quantizes the io-rounded one, so they stay
+           plain. up1 stays in the compute dtype; the down2 norm + pad
+           stays K2.
 The int8 weights and their fp32 scales are quantized once, from the
 parameters as loaded (the fp32 master weights), by ``quantize_weights``;
 they follow the module's device and never its dtype.
@@ -266,6 +274,13 @@ class Generator(nn.Module):
                                     scratch=scratch)
         return hp
 
+    def _norm_relu(self, h: torch.Tensor) -> torch.Tensor:
+        """IN + ReLU of an encoder/decoder activation: K2 on the serving
+        trunks, the plain composition on "tail" and "plain"."""
+        if self.trunk in ("chain", "mega"):
+            return k2.instance_norm(h.contiguous(), relu=True, pad=0)
+        return torch.relu(instance_norm(h))
+
     def _conv8(self, name: str, x8: torch.Tensor, act_scale: float, bias,
                dt: torch.dtype, **kw) -> torch.Tensor:
         return conv_int8_static(x8, *self.qweights[name], bias, act_scale,
@@ -297,13 +312,8 @@ class Generator(nn.Module):
                                 INT8_NORM_SCALE, m[i].bias, dt, stride=2,
                                 zero_point=INT8_ZERO_POINT)
         else:
-            h = conv(h, m[1])
-            h = torch.relu(instance_norm(h))
-            h = conv(h, m[4], stride=2, padding=1)
-            if chain or mega:
-                h = k2.instance_norm(h.contiguous(), relu=True, pad=0)
-            else:
-                h = torch.relu(instance_norm(h))
+            h = self._norm_relu(conv(h, m[1]))
+            h = self._norm_relu(conv(h, m[4], stride=2, padding=1))
             h = conv(h, m[7], stride=2, padding=1)
         if chain or mega:
             # the down2 norm also writes the trunk's first reflect pad
@@ -344,8 +354,7 @@ class Generator(nn.Module):
                             m[hd].bias, torch.float32,
                             zero_point=INT8_ZERO_POINT)
             return torch.tanh(h)
-        h = torch.relu(instance_norm(h))
-        h = conv(upsample_nearest_2x(h), m[u2], padding=1)
-        h = torch.relu(instance_norm(h))
+        h = self._norm_relu(h)
+        h = self._norm_relu(conv(upsample_nearest_2x(h), m[u2], padding=1))
         h = conv(reflect_pad(h, 3), m[hd])
         return torch.tanh(h.to(torch.float32))

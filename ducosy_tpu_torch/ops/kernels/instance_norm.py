@@ -3,23 +3,26 @@ tensor, and its backward.
 
 K2 replaces ``instance_norm_pallas`` (ducosy_tpu/ops/pallas/
 instance_norm.py:206, forward with ``relu`` and ``pad``). On the serving
-path it normalizes down1 (N, 256, 256, 128) and down2 (N, 128, 128, 256);
-the down2 call also writes the trunk's first reflect pad, giving
-(N, 130, 130, 256). On the training trunk it is each block's first norm
-(ReLU, pad 1). Its K2p options: ``phases`` pools the statistics over
-space-to-depth phase groups (channel = phase * C + c; on no serving path),
-and ``instance_norm_int8`` writes shifted-grid int8 for an int8 conv (each
-block's first norm of the tail trunk under quantized serving).
+path (trunks chain and mega) it is every encoder and decoder norm with
+ReLU: the stem and up2 (N, 512, 512, 64), down1 and up1 (N, 256, 256, 128)
+and down2 (N, 128, 128, 256), whose call also writes the trunk's first
+reflect pad, giving (N, 130, 130, 256). On the training trunk it is each
+block's first norm (ReLU, pad 1). Its K2p options: ``phases`` pools the
+statistics over space-to-depth phase groups (channel = phase * C + c; on no
+serving path), and ``instance_norm_int8`` writes shifted-grid int8 for an
+int8 conv (each block's first norm of the tail trunk under quantized
+serving).
 
-K3 replaces ``instance_norm_bwd_pallas`` (instance_norm.py:297), the
-backward of that training-trunk norm. ``instance_norm_fused`` is the
-differentiable op: K2 forward, K3 backward, saving only x and recomputing
-the fp32 statistics, as the JAX ``instance_norm_fused`` custom VJP does
-(instance_norm.py:406-469).
+The kernel is two launches: a block of the first reduces its tile of
+pixels x all channels, and the last block of a sample to finish merges the
+sample's tiles; the second normalizes. ``plan`` cuts the batch into the
+tiles from the shape and the SM count (a pure function, so the CPU tests
+hold it).
 
 The kernels (``csrc/instance_norm.cu``, ``csrc/instance_norm_bwd.cu``) are
-CUDA C++ and share their statistics code with K1. The ``*_plain``
-functions are the same math in plain PyTorch: the TPU package's XLA
+CUDA C++; K3 shares its statistics code with K1, K2 Chan's merge step
+(csrc/common.cuh). The ``*_plain`` functions are the same math in plain
+PyTorch: the TPU package's XLA
 composition (fp32 centred statistics, eps 1e-5, no affine; the int8 write
 quantizes the value rounded to the io dtype) and its analytic backward
 (instance_norm.py:456-466).
@@ -28,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -44,8 +48,37 @@ from ducosy_tpu_torch.ops.quant import (
     quantize_shifted,
 )
 
-TILE_M = 128   # pixels per statistics tile (csrc/common.cuh)
+TILE_M = 128   # pixels per statistics tile of K3 (csrc/common.cuh)
 TILE_N = 64    # channels per tile; C must be a multiple
+
+# K2's plan (csrc/instance_norm.cu): blocks of IN_THREADS threads, one
+# statistics tile a block, as many samples at once as the card has SMs, each
+# cut into at most MAX_TILES tiles of at least MIN_TILE pixels.
+IN_THREADS = 512
+MIN_TILE = 256
+MAX_TILES = 128
+
+
+class Plan(NamedTuple):
+    group: int    # samples a pair of launches
+    tiles: int    # tiles a sample (partials a channel)
+    tile: int     # pixels a tile
+    blocks: int   # the SM count
+
+
+def plan(n: int, h: int, w: int, c: int, itemsize: int, sms: int,
+         group_bytes: int | None = None) -> Plan:
+    """K2's launch plan for x (n, h, w, c) of ``itemsize``-byte elements on
+    a card with ``sms`` SMs. ``group_bytes`` caps a group's input (at least
+    one sample): the L2-resident form that the by-parts reading measures
+    beside the kernel's."""
+    hw, blocks = h * w, sms
+    group = min(n, blocks)
+    if group_bytes is not None:
+        group = max(1, min(group, group_bytes // (hw * c * itemsize)))
+    tiles = max(1, min(MAX_TILES, blocks // group, -(-hw // MIN_TILE)))
+    tile = -(-hw // tiles)
+    return Plan(group, -(-hw // tile), tile, blocks)
 
 
 def _normalize_phases(x: torch.Tensor, phases: int, eps: float):
@@ -90,14 +123,29 @@ def _lib() -> ctypes.CDLL:
     dll = _build.load_library("instance_norm")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dll.ducosy_instance_norm.restype = i
-    dll.ducosy_instance_norm.argtypes = [p] * 6 + [i] * 7 + [f, f, i, p]
+    dll.ducosy_instance_norm.argtypes = [p] * 7 + [i] * 7 + [f, f] + \
+        [i] * 5 + [p]
+    dll.ducosy_instance_norm_probe.restype = i
+    dll.ducosy_instance_norm_probe.argtypes = [p] * 7 + [i] * 13 + [p]
     return dll
 
 
-def _validate(x: torch.Tensor, pad: int, phases: int = 1) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"instance_norm kernel: tensor on {x.device}; the "
-                         "kernel takes CUDA tensors (CPU runs the plain path)")
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def device_plan(x: torch.Tensor) -> Plan:
+    """``plan`` for x on its card."""
+    index = x.device.index if x.device.index is not None \
+        else torch.cuda.current_device()
+    return plan(*x.shape, x.element_size(), _sms(index))
+
+
+def _validate(x: torch.Tensor, pad: int, phases: int = 1,
+              k2: bool = False) -> None:
+    """Refuse what the kernels do not take, shape first, then the device;
+    ``k2`` adds K2's limit on C (one block's 16-byte lanes)."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"instance_norm kernel: dtype {x.dtype} (float32 or "
                         "bfloat16 only)")
@@ -107,32 +155,80 @@ def _validate(x: torch.Tensor, pad: int, phases: int = 1) -> None:
     if c % TILE_N or c == 0:
         raise ValueError(f"instance_norm kernel: C={c} must be a positive "
                          f"multiple of {TILE_N}")
+    cmax = IN_THREADS * 16 // x.element_size()
+    if k2 and c > cmax:
+        raise ValueError(f"instance_norm kernel: C={c} above {cmax} for "
+                         f"{x.dtype}")
     if pad not in (0, 1) or (pad and min(h, w) < 2):
         raise ValueError(f"instance_norm kernel: pad={pad} on {h}x{w} "
                          "(pad 0 or 1, reflect needs H, W >= 2)")
     if phases < 1 or c % phases:
         raise ValueError(f"instance_norm kernel: phases={phases} must divide "
                          f"C={c}")
+    if x.device.type != "cuda":
+        raise ValueError(f"instance_norm kernel: tensor on {x.device}; the "
+                         "kernel takes CUDA tensors (CPU runs the plain path)")
+
+
+def _scratch(x: torch.Tensor, tiles: int) -> tuple:
+    """Per-tile means and M2s (2, n, tiles, c) and per-sample mean and 1/std
+    (2, n, c) in fp32, and an arrival counter a sample (zeroed by the
+    call)."""
+    n, c = x.shape[0], x.shape[-1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    return (torch.empty((2, n, tiles, c), **f32),
+            torch.empty((2, n, c), **f32),
+            torch.empty((n,), dtype=torch.int32, device=x.device))
 
 
 def _launch(x: torch.Tensor, out: torch.Tensor, relu: bool, pad: int,
             phases: int, int8_k: float, eps: float) -> None:
     n, h, w, c = x.shape
-    tiles = -(-h * w // TILE_M)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    pmean = torch.empty((n, tiles, c), **f32)
-    pm2 = torch.empty((n, tiles, c), **f32)
-    mean = torch.empty((n, c), **f32)
-    rstd = torch.empty((n, c), **f32)
+    pl = device_plan(x)
+    part, stats, done = _scratch(x, pl.tiles)
     dll = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         status = dll.ducosy_instance_norm(
-            x.data_ptr(), out.data_ptr(), pmean.data_ptr(), pm2.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), n, h, w, c, int(relu), pad,
-            phases, int8_k, float(eps), int(x.dtype == torch.bfloat16),
-            stream)
+            x.data_ptr(), out.data_ptr(), part[0].data_ptr(),
+            part[1].data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+            done.data_ptr(), n, h, w, c, int(relu), pad, phases, int8_k,
+            float(eps), pl.group, pl.tiles, pl.tile, pl.blocks,
+            int(x.dtype == torch.bfloat16), stream)
     _build.check(dll, status, "instance_norm kernel launch")
+
+
+def probe(x: torch.Tensor, design: int, parts: int, *, relu: bool = True,
+          pad: int = 0, pl: Plan | None = None) -> torch.Tensor:
+    """K2 by parts, for measurement only (io-dtype write, phases 1; not
+    counted): ``design`` 1 is the kernel above (``parts`` 1 the tile
+    statistics, 2 their merge, 4 the apply), 2 the same with each launch
+    after the one before it (no programmatic dependent launch), 0 the
+    original three launches (1 the 128 x 64 tile statistics, 2 the serial
+    finalize, 4 the per-pixel apply). ``pl`` replaces the plan of designs 1
+    and 2.
+    Returns the output (meaningful with parts 7 only)."""
+    _validate(x, pad, k2=True)
+    if design not in (0, 1, 2) or not 1 <= parts <= 7:
+        raise ValueError(f"instance_norm probe: design {design} parts "
+                         f"{parts} (design 0-2, parts 1-7)")
+    n, h, w, c = x.shape
+    pl = pl or device_plan(x)
+    part, stats, done = _scratch(x, pl.tiles if design
+                                 else -(-h * w // TILE_M))
+    out = torch.empty((n, h + 2 * pad, w + 2 * pad, c), dtype=x.dtype,
+                      device=x.device)
+    dll = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        status = dll.ducosy_instance_norm_probe(
+            x.data_ptr(), out.data_ptr(), part[0].data_ptr(),
+            part[1].data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+            done.data_ptr(), n, h, w, c, int(relu), pad, design, parts,
+            pl.group, pl.tiles, pl.tile, pl.blocks,
+            int(x.dtype == torch.bfloat16), stream)
+    _build.check(dll, status, "instance_norm probe launch")
+    return out
 
 
 def instance_norm(x: torch.Tensor, *, relu: bool = False, pad: int = 0,
@@ -144,7 +240,7 @@ def instance_norm(x: torch.Tensor, *, relu: bool = False, pad: int = 0,
     if x.device.type == "cpu":
         return instance_norm_plain(x, relu=relu, pad=pad, phases=phases,
                                    eps=eps)
-    _validate(x, pad, phases)
+    _validate(x, pad, phases, k2=True)
     n, h, w, c = x.shape
     out = torch.empty((n, h + 2 * pad, w + 2 * pad, c), dtype=x.dtype,
                       device=x.device)
@@ -166,7 +262,7 @@ def instance_norm_int8(x: torch.Tensor, *, pad: int = 0,
     if x.device.type == "cpu":
         return instance_norm_int8_plain(x, pad=pad, scale=scale,
                                         phases=phases, eps=eps)
-    _validate(x, pad, phases)
+    _validate(x, pad, phases, k2=True)
     n, h, w, c = x.shape
     out = torch.empty((n, h + 2 * pad, w + 2 * pad, c), dtype=torch.int8,
                       device=x.device)
