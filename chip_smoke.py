@@ -30,8 +30,13 @@ drives the serving path the way a user does, at full model width:
   6. the training kernels against their plain versions at the training
      shapes (N = 8): K3 (instance_norm_bwd) on x (8, 128, 128, 256), pad 1,
      ReLU; K4 (block_tail) and K5 (block_tail_bwd) on h (8, 128, 128, 256)
-     with pad 1 / x_pad 1 and pad 0 / x_pad 1; fp32 and bf16, with max and
-     mean |diff| and CUDA-event times;
+     with pad 1 / x_pad 1 and pad 0 / x_pad 1, and at (2, 50, 70, 128) and
+     (2, 50, 70, 192); fp32 and bf16, with max and mean |diff|. Every K4/K5
+     case prints and checks its route (resident: one cooperative launch;
+     tiled: the original launches); at a resident case it is also held against
+     the tiled route, and at the training shape timed beside it in
+     alternating rounds; then "6 parts": K4 and K5 by parts on both routes
+     at the training shape, bf16;
   3q. quantized serving's kernels against their plain versions: K1q
      (residual_chain quant=True) on the (16, 130, 130, 256) carry, k = 3
      and 1, pad 1 and 0, bf16 and fp32, with the share of int8 t codes
@@ -43,11 +48,13 @@ drives the serving path the way a user does, at full model width:
      phase-4 generators and phantom): exact K1q and K2 launch counts,
      slices/s beside the bf16 chain path, and both fidelity taps against
      the bf16 engine (generate_batch stored outputs; run_patient); then
-     trunk="tail" at quant="trunk" with exact K2-int8 and K4 counts;
+     trunk="tail" at quant="trunk" with exact K2-int8 and K4 counts and its
+     slices/s with K4 on its route and on the tiled one (3% slack);
   5q. the generate CLI with --quant trunk, read back from disk;
   7. the port's training CLI on a synthetic 512^2 chest-phantom patient
      tree with mask generation at SOFT_TISSUE (3 input channels): 9 blocks,
-     base 64, batch 8, bf16, trunk="tail", a few steps. The launch counters
+     base 64, batch 8, bf16, trunk="tail", 7 steps (s/step: the median of
+     the 6 after the first). The launch counters
      must show exactly the K2, K3, K4 and K5 calls of those steps and of the
      validation pass, and every loss must be finite. The same steps then run
      with trunk="plain" from the same init and batches; both first-step
@@ -255,6 +262,9 @@ K2_PROBES = (("original: whole", 0, 7, None), ("tile statistics", 0, 1, None),
 # down2 (with the pad), up1 and up2 norms; under quant="full" down2's alone
 K2_PER_GEN = {None: 5, "trunk": 5, "full": 1}
 TAIL_CASES = ((1, 1), (0, 1))    # (pad, x_pad): blocks 1-8, block 9
+# K4/K5 at ragged shapes: resident (two samples side by side, 28 tiles, the
+# last one part full) and tiled (C = 192)
+TAIL_OTHER_SHAPES = ((2, 50, 70, 128), (2, 50, 70, 192))
 # Training-kernel tolerances, set from the dtypes before any run:
 #  K3 fp32: fp32 statistics and sums on both sides, summation order only:
 #    |d| <= 1e-4 + 1e-4 |ref|. Where the pre-ReLU value |y| < 1e-5 the two
@@ -284,7 +294,9 @@ TRAIN_TOL = {("k3", "float32"): (1e-4, 1e-4), ("k3", "bfloat16"): (1e-2, 1e-2),
 K4_BF16_MEAN_TOL = 1e-3
 K5_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 RELU_EDGE = 1e-5
-TRAIN_PATIENTS, TRAIN_SLICES, TRAIN_STEPS = 5, 8, 4   # 4 train + 1 val
+# 8 train patients + 1 val: 8 batches of 8 slices, 7 steps (6 timed after
+# the first: four steps could not show a 15% change)
+TRAIN_PATIENTS, TRAIN_SLICES, TRAIN_STEPS = 9, 8, 7
 BLOCKS = 9
 
 
@@ -336,14 +348,17 @@ def cuda_ms(fn, iters: int) -> float:
 @contextlib.contextmanager
 def tiled_route(k1, k7):
     """For measurement only: inside, the card is taken to hold no
-    co-resident block, so K7, K8 and K1 run the tiled launches that the
-    resident kernels replace on this card."""
-    saved = k7.resident_blocks, k1.resident_blocks
+    co-resident block, so K7, K8, K1, K4 and K5 run the tiled launches that
+    the resident kernels replace on this card."""
+    from ducosy_tpu_torch.ops.kernels import block_tail as k4
+
+    saved = k7.resident_blocks, k1.resident_blocks, k4.resident_blocks
     k7.resident_blocks = k1.resident_blocks = lambda device: 0
+    k4.resident_blocks = lambda device, backward=False: 0
     try:
         yield
     finally:
-        k7.resident_blocks, k1.resident_blocks = saved
+        k7.resident_blocks, k1.resident_blocks, k4.resident_blocks = saved
 
 
 def route_rounds(k1, k7, fn, iters: int, rounds: int = 3) -> dict:
@@ -362,6 +377,16 @@ def expect_route(k7, what: str, took: str, shape, dtype, dev, *,
     """The route a call took must be the one its shape gives; returns it."""
     n, h, w, c = shape
     want = k7.conv_route(h, w, c, dtype, k7.resident_blocks(dev), tail=tail)
+    if took != want:
+        fail(f"{what}: took the {took} route, its shape gives {want}")
+    return took
+
+
+def expect_tail_route(k4, what: str, took: str, shape, dtype, dev, *,
+                      backward: bool) -> str:
+    """The route a K4 (K5) call took must be the one its shape gives."""
+    n, h, w, c = shape
+    want = k4.tail_route(h, w, c, dtype, k4.resident_blocks(dev, backward))
     if took != want:
         fail(f"{what}: took the {took} route, its shape gives {want}")
     return took
@@ -1478,6 +1503,21 @@ def run_quant_engine_phase(k1, k2, k4, dev, st, lung, records):
     if final[0] > QUANT_MEAN_DHU_MAX:
         fail(f"tail + quant: final-tap mean |dHU| {final[0]} > "
              f"{QUANT_MEAN_DHU_MAX}")
+    # K4's routes under the tail trunk, in alternating rounds
+    with tiled_route(k1, k7):
+        run(tail)                             # warm the tiled route
+    rounds = {"tail": [], "tail, tiled route": []}
+    for _ in range(3):
+        rounds["tail"].append(SLICES / run(tail)[1])
+        with tiled_route(k1, k7):
+            rounds["tail, tiled route"].append(SLICES / run(tail)[1])
+    for name, rates in rounds.items():
+        log(f"engine quant=trunk {name}: slices/s median "
+            f"{statistics.median(rates):.2f} rounds "
+            f"{[round(v, 2) for v in rates]}")
+    records["tail_slices_per_s"] = {k: statistics.median(v)
+                                    for k, v in rounds.items()}
+    check_not_slower("quant=trunk tail", records["tail_slices_per_s"], "tail")
     del tail
     # the int8 convs' im2col blocks go back before the training phase
     torch.cuda.empty_cache()
@@ -1551,7 +1591,7 @@ def compare_stats(got, ref):
                   / torch.linalg.vector_norm(r).clamp_min(1e-30)))
 
 
-def check_training_kernels(k2, k4, dev, records):
+def check_training_kernels(k1, k2, k4, k7, dev, records):
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -1559,8 +1599,12 @@ def check_training_kernels(k2, k4, dev, records):
     r = c // 16
     rand = lambda *s, std=1.0: torch.randn(s, generator=gen, device=dev) * std
 
+    def act_of(shape):
+        cs = shape[-1]
+        return rand(*shape) * (rand(cs).abs() + 0.5) + rand(cs) * 2.0
+
     def act():
-        return rand(*TRAIN_SHAPE) * (rand(c).abs() + 0.5) + rand(c) * 2.0
+        return act_of(TRAIN_SHAPE)
 
     failures = []
     # ---- K3: the backward of each block's first norm (ReLU, pad 1)
@@ -1591,7 +1635,10 @@ def check_training_kernels(k2, k4, dev, records):
             failures.append(f"K3 {dname}")
     del x, g, xd, gd, got, ref, x32, xc, y, keep
 
-    # ---- K4 / K5: the block tail and its backward
+    # ---- K4 / K5: the block tail and its backward, each call on the route
+    # its shape gives (resident here in bf16), held against the plain
+    # version; in bf16 also against the tiled route, and timed beside it in
+    # alternating rounds
     h, xp = act(), rand(n, hw + 2, hw + 2, c)
     w1, w2, wsa = rand(c, r, std=0.1), rand(r, c, std=0.1), \
         rand(7, 7, 2, 1, std=0.1)
@@ -1599,58 +1646,213 @@ def check_training_kernels(k2, k4, dev, records):
         g = rand(n, hw + 2 * pad, hw + 2 * pad, c)
         x = xp if x_pad else xp[:, 1:-1, 1:-1].contiguous()
         for dtype in (torch.float32, torch.bfloat16):
-            dname = str(dtype)[6:]
-            hd, xd, gd = h.to(dtype), x.to(dtype), g.to(dtype)
-            kw = dict(pad=pad, x_pad=x_pad)
-            got = k4.block_tail(hd, xd, w1, w2, wsa, **kw)
-            ref = k4.block_tail_plain(hd, xd, w1, w2, wsa, **kw)
-            torch.cuda.synchronize()
-            atol, rtol = TRAIN_TOL[("k4", dname)]
-            ok, emax, emean = compare(got, ref, atol, rtol)
-            if dtype == torch.bfloat16 and emean > K4_BF16_MEAN_TOL:
-                ok = False
-            ms = cuda_ms(lambda: k4.block_tail(hd, xd, w1, w2, wsa, **kw), 10)
-            plain_ms = cuda_ms(lambda: k4.block_tail_plain(
-                hd, xd, w1, w2, wsa, **kw), 10)
-            log(f"K4 pad={pad} x_pad={x_pad} {tuple(hd.shape)} {dname}: "
-                f"max|d|={emax:.3e} mean|d|={emean:.3e} (atol {atol}, rtol "
-                f"{rtol}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                f"{'ok' if ok else 'FAIL'}")
-            records[("k4", pad, dname)] = dict(max_abs_err=emax, ms=ms,
-                                               plain_ms=plain_ms)
-            if not ok:
-                failures.append(f"K4 pad={pad} {dname}")
-
-            got = k4.block_tail_bwd(hd, gd, w1, w2, wsa, **kw)
-            ref = k4.block_tail_bwd_plain(hd, gd, w1, w2, wsa, **kw)
-            torch.cuda.synchronize()
-            tol, worst, parts = K5_TOL[dname], 0.0, []
-            for name, a, b in zip(("dh", "dx", "dw1", "dw2", "dwsa"), got,
-                                  ref):
-                emax, emean, rel = compare_stats(a, b)
-                scale = float(b.float().abs().max())
-                if name == "dx" and dtype == torch.bfloat16:
-                    good = compare(a, b, 1e-2, 1e-2)[0]
-                elif dtype == torch.float32:
-                    good = rel <= tol and emax <= tol * scale
-                else:
-                    good = rel <= tol
-                if name == "dh":
-                    worst = emax
-                parts.append(f"{name} max|d|={emax:.3e} mean|d|={emean:.3e} "
-                             f"relL2={rel:.2e}{'' if good else ' FAIL'}")
-                if not good:
-                    failures.append(f"K5 pad={pad} {dname} {name}")
-            ms = cuda_ms(lambda: k4.block_tail_bwd(hd, gd, w1, w2, wsa, **kw),
-                         5)
-            plain_ms = cuda_ms(lambda: k4.block_tail_bwd_plain(
-                hd, gd, w1, w2, wsa, **kw), 5)
-            log(f"K5 pad={pad} x_pad={x_pad} {dname}: " + "; ".join(parts)
-                + f" (tol {tol}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-            records[("k5", pad, dname)] = dict(max_abs_err=worst, ms=ms,
-                                               plain_ms=plain_ms)
+            failures += check_tail_case(k1, k4, k7, dev, records, h, x, g,
+                                        (w1, w2, wsa), pad, x_pad, dtype)
+    del h, xp, g, x
+    # ragged images: resident with two samples side by side and a last tile
+    # the pixels do not fill; C = 192, which stays tiled
+    for shape in TAIL_OTHER_SHAPES:
+        h, c2 = act_of(shape), shape[3]
+        w1, w2, wsa = rand(c2, c2 // 16, std=0.1), \
+            rand(c2 // 16, c2, std=0.1), rand(7, 7, 2, 1, std=0.1)
+        for pad, x_pad in TAIL_CASES:
+            x = rand(shape[0], shape[1] + 2 * x_pad, shape[2] + 2 * x_pad, c2)
+            g = rand(shape[0], shape[1] + 2 * pad, shape[2] + 2 * pad, c2)
+            for dtype in (torch.float32, torch.bfloat16):
+                failures += check_tail_case(k1, k4, k7, dev, {}, h, x, g,
+                                            (w1, w2, wsa), pad, x_pad, dtype,
+                                            timed=False)
+    torch.cuda.empty_cache()
     if failures:
         fail(f"kernel disagrees with its plain version: {failures}")
+
+
+def k5_agreement(got, ref, dname: str, tol: float) -> tuple[list, list, float]:
+    """K5's outputs against a reference set: the parts of the log line and
+    the failures (K5_TOL: relative L2 for every output, fp32 also max |d|
+    within tol of the largest |ref|; bf16 dx elementwise)."""
+    import torch
+
+    parts, bad, worst = [], [], 0.0
+    for name, a, b in zip(("dh", "dx", "dw1", "dw2", "dwsa"), got, ref):
+        emax, emean, rel = compare_stats(a, b)
+        scale = float(b.float().abs().max())
+        if name == "dx" and dname == "bfloat16":
+            good = compare(a, b, 1e-2, 1e-2)[0]
+        elif dname == "float32":
+            good = rel <= tol and emax <= tol * scale
+        else:
+            good = rel <= tol
+        if name == "dh":
+            worst = emax
+        parts.append(f"{name} max|d|={emax:.3e} mean|d|={emean:.3e} "
+                     f"relL2={rel:.2e}{'' if good else ' FAIL'}")
+        if not good:
+            bad.append(name)
+    return parts, bad, worst
+
+
+def check_tail_case(k1, k4, k7, dev, records, h, x, g, weights, pad, x_pad,
+                    dtype, *, timed: bool = True) -> list:
+    """K4 and K5 at one case: the route against the shape's, the kernel
+    against the plain version (and, on the resident route, against the
+    tiled route's launches), times beside the tiled route's in alternating
+    rounds. Returns the failures."""
+    import torch
+
+    dname = str(dtype)[6:]
+    w1, w2, wsa = weights
+    hd, xd, gd = h.to(dtype), x.to(dtype), g.to(dtype)
+    kw = dict(pad=pad, x_pad=x_pad)
+    what = f"pad={pad} x_pad={x_pad} {tuple(hd.shape)} {dname}"
+    failures = []
+
+    fwd = lambda: k4.block_tail(hd, xd, w1, w2, wsa, **kw)
+    got = fwd()
+    route = expect_tail_route(k4, f"K4 {what}", k4.launch_block_tail.route,
+                              hd.shape, dtype, dev, backward=False)
+    ref = k4.block_tail_plain(hd, xd, w1, w2, wsa, **kw)
+    torch.cuda.synchronize()
+    atol, rtol = TRAIN_TOL[("k4", dname)]
+    ok, emax, emean = compare(got, ref, atol, rtol)
+    if dtype == torch.bfloat16 and emean > K4_BF16_MEAN_TOL:
+        ok = False
+    vs_tiled = ""
+    if route == "resident":
+        with tiled_route(k1, k7):
+            tiled = fwd()
+        t_ok, t_max, t_mean = compare(got, tiled, atol, rtol)
+        if dtype == torch.bfloat16 and t_mean > K4_BF16_MEAN_TOL:
+            t_ok = False
+        ok = ok and t_ok
+        vs_tiled = f", vs the tiled route max|d|={t_max:.3e} mean|d|={t_mean:.3e}"
+    rec = dict(max_abs_err=emax, route=route)
+    if timed:
+        ms = route_rounds(k1, k7, fwd, 10)
+        rec.update(ms=ms["routed"], tiled_ms=ms["tiled"],
+                   plain_ms=cuda_ms(lambda: k4.block_tail_plain(
+                       hd, xd, w1, w2, wsa, **kw), 10))
+    times = (f" {route} {rec['ms']:.4f} ms, tiled route {rec['tiled_ms']:.4f}"
+             f" ms, plain {rec['plain_ms']:.4f} ms") if timed else ""
+    log(f"K4 {what} [{route}]: max|d|={emax:.3e} mean|d|={emean:.3e} (atol "
+        f"{atol}, rtol {rtol}){vs_tiled}{times} {'ok' if ok else 'FAIL'}")
+    records[("k4", pad, dname)] = rec
+    if not ok:
+        failures.append(f"K4 {what}")
+
+    bwd = lambda: k4.block_tail_bwd(hd, gd, w1, w2, wsa, **kw)
+    got = bwd()
+    route = expect_tail_route(k4, f"K5 {what}",
+                              k4.launch_block_tail_bwd.route, hd.shape,
+                              dtype, dev, backward=True)
+    ref = k4.block_tail_bwd_plain(hd, gd, w1, w2, wsa, **kw)
+    torch.cuda.synchronize()
+    tol = K5_TOL[dname]
+    parts, bad, worst = k5_agreement(got, ref, dname, tol)
+    failures += [f"K5 {what} {b}" for b in bad]
+    vs_tiled = ""
+    if route == "resident":
+        with tiled_route(k1, k7):
+            tiled = bwd()
+        t_parts, t_bad, _ = k5_agreement(got, tiled, dname, tol)
+        failures += [f"K5 {what} {b} vs the tiled route" for b in t_bad]
+        vs_tiled = "; vs the tiled route: " + "; ".join(t_parts)
+    rec = dict(max_abs_err=worst, route=route)
+    if timed:
+        ms = route_rounds(k1, k7, bwd, 5)
+        rec.update(ms=ms["routed"], tiled_ms=ms["tiled"],
+                   plain_ms=cuda_ms(lambda: k4.block_tail_bwd_plain(
+                       hd, gd, w1, w2, wsa, **kw), 5))
+    times = (f" {route} {rec['ms']:.4f} ms, tiled route {rec['tiled_ms']:.4f}"
+             f" ms, plain {rec['plain_ms']:.4f} ms") if timed else ""
+    log(f"K5 {what} [{route}]: " + "; ".join(parts) + f" (tol {tol})"
+        + vs_tiled + times)
+    records[("k5", pad, dname)] = rec
+    return failures
+
+
+# K4 / K5 by parts (phase 6) at the training shape, bf16, pad 1, x_pad 1:
+# (label, route, parts). The tiled route's parts are its launches (K4: 1 tile
+# statistics, 2 channel gate, 4 spatial tail; K5: the BWD_* flags of
+# ops/kernels/block_tail.py); the resident kernels' are compiled out (K4: 1
+# the load of h and the tile partials, 2 the grid barriers, merges and gate,
+# 4 the rest of the epilogue; K5: 1 the copies in and out, 2 the grid
+# barriers and merges, 4 the statistics, gate and maps, 8 the 7x7 adjoint,
+# 16 the tile sums and gate adjoint, 32 dh).
+K4_PROBES = (("tiled: whole", "tiled", 7), ("tiled: tile statistics", "tiled", 1),
+             ("tiled: channel gate", "tiled", 2),
+             ("tiled: spatial tail", "tiled", 4),
+             ("resident: whole", "resident", 7),
+             ("resident: load + tile partials", "resident", 1),
+             ("resident: load, partials, barriers, merge, gate", "resident", 3),
+             ("resident: without the barriers", "resident", 5))
+K5_PROBES = (("tiled: whole", "tiled", 31), ("tiled: stats pass", "tiled", 1),
+             ("tiled: 7x7 adjoint in PyTorch", "tiled", 2),
+             ("tiled: tile sums + gate adjoint", "tiled", 4),
+             ("tiled: apply", "tiled", 8), ("tiled: dx fold", "tiled", 16),
+             ("resident: whole", "resident", 63),
+             ("resident: copies alone", "resident", 1),
+             ("resident: copies + barriers", "resident", 3),
+             ("resident: copies + statistics, gate, maps", "resident", 5),
+             ("resident: copies + 7x7 adjoint", "resident", 9),
+             ("resident: copies + tile sums, gate adjoint", "resident", 17),
+             ("resident: copies + dh", "resident", 33),
+             ("resident: all but the barriers", "resident", 61))
+
+
+def check_tail_parts(k1, k4, k7, dev, records, routes=("tiled", "resident")):
+    """K4 and K5 by parts at TRAIN_SHAPE, bf16, pad 1 / x_pad 1: the
+    K4_PROBES and K5_PROBES rows of ``routes``, median of 3 rounds that
+    alternate every row. A part alone reads what the others would have
+    left in scratch: its time is right, its output is not."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    n, hw, _, c = TRAIN_SHAPE
+    r = c // 16
+    rand = lambda *s, std=1.0: torch.randn(s, generator=gen, device=dev) * std
+    bf = torch.bfloat16
+    h = (rand(*TRAIN_SHAPE) * (rand(c).abs() + 0.5) + rand(c) * 2.0).to(bf)
+    x = rand(n, hw + 2, hw + 2, c).to(bf)
+    g = rand(n, hw + 2, hw + 2, c).to(bf)
+    w1, w2, wsa = rand(c, r, std=0.1), rand(r, c, std=0.1), \
+        rand(7, 7, 2, 1, std=0.1)
+    kw = dict(pad=1, x_pad=1, eps=1e-5)
+    groups = {bwd: k4.tail_groups(n, hw, hw, c, bf, k4.resident_blocks(dev, bwd))
+              for bwd in (False, True)}
+    if "resident" in routes and not all(groups.values()):
+        fail(f"K4/K5 by parts: {TRAIN_SHAPE} is not on the resident route")
+    scratch = {(route, bwd): k4.tail_scratch(
+        n, hw, hw, c, dev, resident=route == "resident", backward=bwd,
+        groups=max(groups[bwd], 1)) for route in routes for bwd in (False, True)}
+
+    def call(route, bwd, parts):
+        sc = scratch[(route, bwd)]
+        ctx = tiled_route(k1, k7) if route == "tiled" else \
+            contextlib.nullcontext()
+        with ctx:
+            if bwd:
+                k4.launch_block_tail_bwd(h, g, w1, w2, wsa, parts=parts,
+                                         scratch=sc, **kw)
+            else:
+                k4.launch_block_tail(h, x, w1, w2, wsa, parts=parts,
+                                     scratch=sc, **kw)
+
+    for name, bwd, probes in (("K4", False, K4_PROBES),
+                              ("K5", True, K5_PROBES)):
+        rows = [p for p in probes if p[1] in routes]
+        rounds = {p[0]: [] for p in rows}
+        for _ in range(3):
+            for label, route, parts in rows:
+                rounds[label].append(cuda_ms(
+                    lambda: call(route, bwd, parts), 10))
+        ms = {k: statistics.median(v) for k, v in rounds.items()}
+        records[("tailparts", name)] = ms
+        log(f"{name} {TRAIN_SHAPE} pad=1 x_pad=1 bf16 by parts (median of 3 "
+            "alternating rounds): " + ", ".join(f"{k} {v:.4f} ms"
+                                              for k, v in ms.items()))
+    del h, x, g
+    torch.cuda.empty_cache()
 
 
 def write_training_tree(root: Path) -> None:
@@ -2010,7 +2212,8 @@ def main() -> None:
     phase("4m", run_mega_engine_phase, k1, k2, k7, dev, st, lung, records)
     phase("5", run_cli_phase, k1, k2, st, lung)
     phase("5q", run_cli_phase, k1, k2, st, lung, flags=("--quant", "trunk"))
-    phase("6", check_training_kernels, k2, k4, dev, records)
+    phase("6", check_training_kernels, k1, k2, k4, k7, dev, records)
+    phase("6 parts", check_tail_parts, k1, k4, k7, dev, records)
     with tempfile.TemporaryDirectory() as run_dir:
         phase("7", run_training_phase, k2, k4, Path(run_dir), records)
         phase("8", run_masked_cli_phase, k1, k2, dev, Path(run_dir))

@@ -460,6 +460,13 @@ __global__ void norm_apply_int8(const TIn* __restrict__ x,
     if (e_ != cudaSuccess) return (int)e_;        \
   } while (0)
 
+// Return a nonzero status of `call` (a launch function's) at once.
+#define DUCOSY_TRY(call)            \
+  do {                              \
+    const int e_ = (call);          \
+    if (e_ != 0) return e_;         \
+  } while (0)
+
 // Each library is one translation unit that includes this header once.
 extern "C" const char* ducosy_error_string(int status) {
   return cudaGetErrorString((cudaError_t)status);

@@ -71,11 +71,10 @@
 
 #include <type_traits>
 
-#include "common.cuh"
+#include "tile_regs.cuh"
 
 namespace ducosy {
 
-constexpr int CONV_THREADS = 256;    // two warpgroups
 constexpr int BKF = 16;              // fp32 input channels per K step
 constexpr int RING_STAGES = 4;
 constexpr int RING_AHEAD = RING_STAGES - 2;   // stages loaded ahead of the MMAs
@@ -84,23 +83,6 @@ constexpr int RING_ALIGN = 1024;     // a swizzle atom repeats every 1024 B
 constexpr int PART_STORE = 1, PART_STATS = 2, PART_MMA = 4, PART_ALL = 7;
 
 // ---- PTX used by the ring and the MMAs
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16 bytes global -> shared, bypassing L1; zero-fills when !ok (src is
-// still a valid address)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 // orders the copies' shared-memory writes before the MMAs' reads of them
 __device__ __forceinline__ void fence_async_proxy() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -171,32 +153,6 @@ DUCOSY_WGMMA(64, DUCOSY_REGS64, DUCOSY_ACC64, "%32", "%33", "%34")
 DUCOSY_WGMMA(128, DUCOSY_REGS128, DUCOSY_ACC128, "%64", "%65", "%66")
 DUCOSY_WGMMA(256, DUCOSY_REGS256, DUCOSY_ACC256, "%128", "%129", "%130")
 #undef DUCOSY_WGMMA
-
-// One reduce-scatter step over the lane bit BIT: the LEN values of s are
-// halved, the lane with the bit clear keeping the lower half's sums (or
-// maxima) over both lanes, its partner the upper half's.
-template <int LEN, int BIT, bool MAX>
-__device__ __forceinline__ void scatter_step(float (&s)[16], int lane) {
-  const bool hi = lane & BIT;
-#pragma unroll
-  for (int i = 0; i < LEN / 2; ++i) {
-    const float send = hi ? s[i] : s[i + LEN / 2];
-    const float keep = hi ? s[i + LEN / 2] : s[i];
-    const float recv = __shfl_xor_sync(0xffffffffu, send, BIT);
-    s[i] = MAX ? fmaxf(keep, recv) : keep + recv;
-  }
-}
-
-// s holds, for this thread's two rows, 16 column values of one 64-column
-// chunk (index 2 jj + e is column 8 jj + 2 (lane % 4) + e). Reduces over
-// the warp's 16 rows; lane l ends with columns 2 l and 2 l + 1 of the chunk
-// in s[0], s[1].
-template <bool MAX>
-__device__ __forceinline__ void warp_columns(float (&s)[16], int lane) {
-  scatter_step<16, 16, MAX>(s, lane);
-  scatter_step<8, 8, MAX>(s, lane);
-  scatter_step<4, 4, MAX>(s, lane);
-}
 
 // The geometry of one conv3x3_wgmma instantiation: TIn is bf16 or int8_t,
 // ROWB the bytes of input channels per K step and operand row, BN the output
@@ -305,80 +261,6 @@ __device__ __forceinline__ void conv_tile_mma(
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) pin(d[i]);
   __syncthreads();                               // the ring is free
-}
-
-// The tile's per-channel partials from the accumulator registers: mean, M2
-// and (if pmax) max over the tile's `rows` valid pixels, written at
-// pmean[k], pm2[k], pmax[k] for the block's channels k < BN (the pointers
-// already at the tile's first channel). `red` is 17 BN floats of shared
-// memory that nothing else uses meanwhile; its last BN floats keep the tile
-// means. A reduce-scatter over the eight lanes that share a column, then one
-// pass through shared memory across the eight warps: sum and max, then, with
-// the tile mean broadcast back, the centred M2.
-template <int BN, typename Acc>
-__device__ __forceinline__ void tile_partials(const Acc (&d)[BN / 2],
-                                              float* red, int rows,
-                                              float* pmean, float* pm2,
-                                              float* pmax) {
-  constexpr int CHUNKS = BN / 64;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  float* redx = red + 8 * BN;                    // [8 warps][BN] maxima
-  float* tmean = redx + 8 * BN;                  // [BN] tile means
-  const int r0 = warp * 16 + lane / 4, cq = (lane % 4) * 2;
-  const bool ok0 = r0 < rows, ok1 = r0 + 8 < rows;
-#pragma unroll
-  for (int q = 0; q < CHUNKS; ++q) {
-    float s[16], mx[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int at = (8 * q + i / 2) * 4 + i % 2;
-      const float v0 = (float)d[at], v1 = (float)d[at + 2];
-      s[i] = (ok0 ? v0 : 0.f) + (ok1 ? v1 : 0.f);
-      mx[i] = fmaxf(ok0 ? v0 : -INFINITY, ok1 ? v1 : -INFINITY);
-    }
-    warp_columns<false>(s, lane);
-    *reinterpret_cast<float2*>(red + warp * BN + 64 * q + 2 * lane) =
-        make_float2(s[0], s[1]);
-    if (pmax) {
-      warp_columns<true>(mx, lane);
-      *reinterpret_cast<float2*>(redx + warp * BN + 64 * q + 2 * lane) =
-          make_float2(mx[0], mx[1]);
-    }
-  }
-  __syncthreads();
-  if (tid < BN) {
-    float t = 0.f, x = -INFINITY;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) t += red[k * BN + tid];
-    tmean[tid] = pmean[tid] = t / rows;
-    if (pmax) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) x = fmaxf(x, redx[k * BN + tid]);
-      pmax[tid] = x;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int q = 0; q < CHUNKS; ++q) {
-    float s[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int at = (8 * q + i / 2) * 4 + i % 2;
-      const float m = tmean[64 * q + (i / 2) * 8 + cq + i % 2];
-      const float e0 = (float)d[at] - m, e1 = (float)d[at + 2] - m;
-      s[i] = (ok0 ? e0 * e0 : 0.f) + (ok1 ? e1 * e1 : 0.f);
-    }
-    warp_columns<false>(s, lane);
-    *reinterpret_cast<float2*>(red + warp * BN + 64 * q + 2 * lane) =
-        make_float2(s[0], s[1]);
-  }
-  __syncthreads();
-  if (tid < BN) {
-    float t = 0.f;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) t += red[k * BN + tid];
-    pm2[tid] = t;
-  }
 }
 
 // 3x3 VALID conv on the tensor cores, fp32 out. TIn is bf16 (fp32
@@ -593,9 +475,3 @@ inline int launch_conv_int8(const int8_t* xp, const int8_t* wt, float* acc,
 }
 
 }  // namespace ducosy
-
-#define DUCOSY_TRY(call)            \
-  do {                              \
-    const int e_ = (call);          \
-    if (e_ != 0) return e_;         \
-  } while (0)

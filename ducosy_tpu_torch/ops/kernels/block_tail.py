@@ -6,10 +6,23 @@ the forward of ``block_tail_fused`` on the training trunk
 input reflect-padded by ``x_pad`` (only its interior joins the skip), and
 the result is reflect-padded by ``pad`` for the next block.
 
-K5 replaces ``block_tail_bwd_pallas`` (cbam_block.py:272), the two-pass
-VJP that recomputes the forward from h. Between its passes the 7x7
-spatial-gate adjoint runs in plain PyTorch on the (N, H, W) maps, as the
-JAX package runs it in XLA (cbam_block.py:314-327).
+K5 replaces ``block_tail_bwd_pallas`` (cbam_block.py:272), the VJP that
+recomputes the forward from h and returns (dh, dx, dw1, dw2, dwsa).
+
+Both run by one of two routes that ``tail_route`` picks from the shape, the
+dtype and the device's co-resident block count, never from a failure:
+  "resident" (bf16, C = 64, 128 or 256, W <= 256, every 128-pixel tile of a
+    sample on the card at once): one cooperative launch each. K4 is K8's
+    epilogue (csrc/tail_resident.cuh) on h loaded from device memory; K5
+    keeps each block's tiles of h and of the folded cotangent in shared
+    memory, runs the 7x7 spatial-gate adjoint inside the block from the map
+    rows within reach, and writes dh and dx itself (csrc/block_tail_bwd.cu).
+  "tiled" (everything else: fp32, C = 192, wide or large images): the
+    original launches. K5 is two passes with the 7x7 adjoint between them in plain
+    PyTorch on the (N, H, W) maps, as the JAX package runs it in XLA
+    (cbam_block.py:314-327), and dx folded here in fp32.
+A refused cooperative launch raises; nothing drops to the other route or to
+a plain version.
 
 ``block_tail_fused`` is the differentiable op: K4 forward, K5 backward on
 the card; on the CPU ``block_tail_plain`` (the XLA composition
@@ -19,12 +32,14 @@ the gradient among tied maxima in both max pools).
 
 Layouts are the JAX package's: w1 (C, R), w2 (R, C), wsa (7, 7, 2, 1) HWIO.
 The kernels are CUDA C++ (``csrc/block_tail.cu``, ``csrc/block_tail_bwd.cu``)
-and share their tail code with K1 (``csrc/cbam_tail.cuh``).
+and share their tail code with K1 (``csrc/cbam_tail.cuh``) and K8
+(``csrc/tail_resident.cuh``).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -167,26 +182,129 @@ def block_tail_bwd_plain(h, g, w1, w2, wsa, *, pad: int, x_pad: int,
             dw2.to(w2.dtype), dwsa.to(wsa.dtype))
 
 
+# ---- routes and scratch
+
+def tail_route(h: int, w: int, c: int, dtype, resident_blocks: int) -> str:
+    """The route of a K4 or K5 call on h (n, h, w, c): "resident" or
+    "tiled", from the shape, the dtype and how many blocks of the resident
+    kernel the device holds at once (``resident_blocks``), never from a
+    failure. Resident is K8's epilogue without the conv: bf16, one block
+    holding every channel of its 128 pixels (C = 64, 128 or 256), a width
+    whose 7x7 map rows fit in shared memory (<= 256), and every tile of a
+    sample on the card at once."""
+    from ducosy_tpu_torch.ops.kernels import conv_in   # imports this module
+
+    if dtype != torch.bfloat16 or c not in conv_in._RESIDENT_TAIL_C \
+            or w > conv_in._RESIDENT_TAIL_W:
+        return "tiled"
+    return "resident" if conv_in._sample_blocks(h, w, c) <= resident_blocks \
+        else "tiled"
+
+
+def tail_groups(n: int, h: int, w: int, c: int, dtype,
+                resident_blocks: int) -> int:
+    """How many samples a resident launch holds side by side (each group of
+    blocks walks every ``groups``-th sample); 0 on the tiled route."""
+    from ducosy_tpu_torch.ops.kernels import conv_in
+
+    if tail_route(h, w, c, dtype, resident_blocks) == "tiled":
+        return 0
+    return min(n, resident_blocks // conv_in._sample_blocks(h, w, c),
+               conv_in.BARRIER_WORDS)
+
+
+class TailScratch(NamedTuple):
+    """Device scratch of one K4 or K5 call on h (n, h, w, c), fp32 but the
+    barrier words. Forward, both routes: per-tile (mean, M2, max) and per
+    channel (mean, 1/std, gate) or (mean, 1/std, max). Backward, tiled:
+    the same partials and (mean, 1/std, max y, gate), maps (n, 4, h, w)
+    (sa_avg, sa_max, dgs, mcnt); resident: partials also of sum dt, sum
+    dt*y and [y == max y], per channel also the merged sums and da, maps
+    (2, n, h*w, 2) ((sa_avg, sa_max), (dgs, mcnt)) and dwsa's per-tile
+    partials (n, tiles, 98)."""
+    partials: torch.Tensor        # (3 or 6, n, tiles, c)
+    stats: torch.Tensor           # (3, 4 or 7, n, c)
+    maps: torch.Tensor | None     # per pixel; None for the tiled forward
+    pdwsa: torch.Tensor | None    # (n, tiles, 98), resident backward
+    barrier: torch.Tensor | None  # (groups,) int64, zeroed; resident only
+
+
+def tail_scratch(n: int, h: int, w: int, c: int, device, *, resident: bool,
+                 backward: bool, groups: int = 1) -> TailScratch:
+    """The scratch of a K4 (``backward`` False) or K5 call on (n, h, w, c),
+    per route; a resident call's ``groups`` barrier words are zeroed (each
+    counts up for ever and serves one tile count: a scratch serves calls
+    of one shape)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    tiles = -(-h * w // TILE_M)
+    k = 6 if resident and backward else 3
+    vec = 7 if resident and backward else 4 if backward else 3
+    if not backward:
+        maps = torch.empty((n, h * w, 2), **f32) if resident else None
+    else:
+        maps = torch.empty((2, n, h * w, 2) if resident else (n, 4, h, w),
+                           **f32)
+    return TailScratch(
+        torch.empty((k, n, tiles, c), **f32), torch.empty((vec, n, c), **f32),
+        maps,
+        torch.empty((n, tiles, 2 * SA_KERNEL ** 2), **f32)
+        if resident and backward else None,
+        torch.zeros(groups, dtype=torch.int64, device=device)
+        if resident else None)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     dll = _build.load_library("block_tail")
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dll.ducosy_block_tail.restype = i
-    dll.ducosy_block_tail.argtypes = [p] * 12 + [i] * 7 + [
-        ctypes.c_float, i, p]
+    dll.ducosy_block_tail.argtypes = [p] * 12 + [i] * 7 + [f, i, i, p]
+    dll.ducosy_block_tail_resident.restype = i
+    dll.ducosy_block_tail_resident.argtypes = [p] * 14 + [i] * 7 + [
+        f, i, i, p]
+    dll.ducosy_block_tail_resident_blocks.restype = i
+    dll.ducosy_block_tail_resident_blocks.argtypes = [ctypes.POINTER(i)]
     return dll
 
 
 @functools.cache
 def _bwd_lib() -> ctypes.CDLL:
     dll = _build.load_library("block_tail_bwd")
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dll.ducosy_block_tail_bwd_stats.restype = i
-    dll.ducosy_block_tail_bwd_stats.argtypes = [p] * 12 + [i] * 6 + [
-        ctypes.c_float, i, p]
+    dll.ducosy_block_tail_bwd_stats.argtypes = [p] * 12 + [i] * 6 + [f, i, p]
     dll.ducosy_block_tail_bwd_apply.restype = i
-    dll.ducosy_block_tail_bwd_apply.argtypes = [p] * 16 + [i] * 7 + [p]
+    dll.ducosy_block_tail_bwd_apply.argtypes = [p] * 16 + [i] * 8 + [p]
+    dll.ducosy_block_tail_bwd_resident.restype = i
+    dll.ducosy_block_tail_bwd_resident.argtypes = [p] * 14 + [i] * 7 + [
+        f, i, i, p]
+    dll.ducosy_block_tail_bwd_resident_blocks.restype = i
+    dll.ducosy_block_tail_bwd_resident_blocks.argtypes = [ctypes.POINTER(i)]
     return dll
+
+
+@functools.cache
+def _resident_blocks(index: int, backward: bool) -> int:
+    dll, blocks = (_bwd_lib() if backward else _lib()), ctypes.c_int()
+    entry = dll.ducosy_block_tail_bwd_resident_blocks if backward \
+        else dll.ducosy_block_tail_resident_blocks
+    with torch.cuda.device(index):
+        status = entry(ctypes.byref(blocks))
+    _build.check(dll, status, "block_tail resident_blocks query")
+    return blocks.value
+
+
+def resident_blocks(device, backward: bool = False) -> int:
+    """How many blocks of K4's (``backward``: K5's) resident kernel
+    ``device`` holds at once: its SM count times the occupancy the runtime
+    reports (132 x 1 on an H100 SXM), asked once per device; 0 for the CPU.
+    Builds the library."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 0
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return _resident_blocks(index, backward)
 
 
 def _validate(what, h, other, other_pad, w1, w2, wsa, pad) -> None:
@@ -218,6 +336,72 @@ def _validate(what, h, other, other_pad, w1, w2, wsa, pad) -> None:
     if pad not in (0, 1) or other_pad not in (0, 1) or min(hh, ww) < 2:
         raise ValueError(f"{what} kernel: {hh}x{ww}, pads {pad}, "
                          f"{other_pad} (pads 0 or 1, H, W >= 2)")
+    if h.data_ptr() % 16 or other.data_ptr() % 16:
+        raise ValueError(f"{what} kernel: inputs must be 16-byte aligned")
+
+
+def _weights(w1, w2, wsa):
+    """The MLP in fp32 and the spatial-gate taps as (avg taps | max taps),
+    tap = di * 7 + dj, as the kernels read them."""
+    return (w1.to(torch.float32).contiguous(),
+            w2.to(torch.float32).contiguous(),
+            wsa.reshape(SA_KERNEL * SA_KERNEL, 2).T.to(torch.float32)
+            .contiguous())
+
+
+def _ptrs(ts):
+    return [t.data_ptr() for t in ts]
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _route(h, backward: bool) -> tuple[str, int]:
+    """(route, groups) of a K4/K5 call on h."""
+    n, hh, ww, c = h.shape
+    groups = tail_groups(n, hh, ww, c, h.dtype,
+                         resident_blocks(h.device, backward))
+    return ("resident" if groups else "tiled"), groups
+
+
+def launch_block_tail(h, x, w1, w2, wsa, *, pad: int, x_pad: int, eps: float,
+                      parts: int = 7, scratch: TailScratch | None = None):
+    """Validate, route, allocate and launch K4; counts nothing. ``parts``
+    other than 7 (with a ``scratch`` made once, for timing) runs the
+    launches of the tiled route that it sums (1 tile statistics, 2 channel
+    gate, 4 spatial tail) or the resident kernel at C = 256 with parts
+    compiled out (1 the load and tile partials, 2 the barriers, merges and
+    gate, 4 the rest of the epilogue): the output is then not K4's."""
+    _validate("block_tail", h, x, x_pad, w1, w2, wsa, pad)
+    n, hh, ww, c = h.shape
+    route, groups = _route(h, False)
+    sc = scratch or tail_scratch(n, hh, ww, c, h.device,
+                                 resident=bool(groups), backward=False,
+                                 groups=max(groups, 1))
+    out = torch.empty((n, hh + 2 * pad, ww + 2 * pad, c), dtype=h.dtype,
+                      device=h.device)
+    w = _weights(w1, w2, wsa)
+    dll = _lib()
+    with torch.cuda.device(h.device):
+        if groups:
+            status = dll.ducosy_block_tail_resident(
+                h.data_ptr(), x.data_ptr(), *_ptrs(w), out.data_ptr(),
+                *_ptrs(sc.partials), *_ptrs(sc.stats), sc.maps.data_ptr(),
+                sc.barrier.data_ptr(), n, hh, ww, c, w1.shape[-1], pad,
+                x_pad, float(eps), groups, parts, _stream(h.device))
+        else:
+            status = dll.ducosy_block_tail(
+                h.data_ptr(), x.data_ptr(), *_ptrs(w), out.data_ptr(),
+                *_ptrs(sc.partials), *_ptrs(sc.stats), n, hh, ww, c,
+                w1.shape[-1], pad, x_pad, float(eps),
+                int(h.dtype == torch.bfloat16), parts, _stream(h.device))
+    _build.check(dll, status, f"block_tail ({route}) kernel launch")
+    launch_block_tail.route = route
+    return out
+
+
+launch_block_tail.route = None    # the route of the last K4 launch
 
 
 def block_tail(h, x, w1, w2, wsa, *, pad: int, x_pad: int,
@@ -227,34 +411,109 @@ def block_tail(h, x, w1, w2, wsa, *, pad: int, x_pad: int,
     if h.device.type == "cpu":
         return block_tail_plain(h, x, w1, w2, wsa, pad=pad, x_pad=x_pad,
                                 eps=eps)
-    _validate("block_tail", h, x, x_pad, w1, w2, wsa, pad)
-    n, hh, ww, c = h.shape
-    r = w1.shape[-1]
-    tiles = -(-hh * ww // TILE_M)
-    f32 = dict(dtype=torch.float32, device=h.device)
-    out = torch.empty((n, hh + 2 * pad, ww + 2 * pad, c), dtype=h.dtype,
-                      device=h.device)
-    part = torch.empty((3, n, tiles, c), **f32)
-    vec = torch.empty((3, n, c), **f32)
-    w1f = w1.to(torch.float32).contiguous()
-    w2f = w2.to(torch.float32).contiguous()
-    # spatial-gate taps as (avg taps | max taps), tap = di * 7 + dj
-    wsa2 = wsa.reshape(SA_KERNEL * SA_KERNEL, 2).T.to(torch.float32) \
-        .contiguous()
-    dll = _lib()
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        status = dll.ducosy_block_tail(
-            h.data_ptr(), x.data_ptr(), w1f.data_ptr(), w2f.data_ptr(),
-            wsa2.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in part),
-            *(t.data_ptr() for t in vec), n, hh, ww, c, r, pad, x_pad,
-            float(eps), int(h.dtype == torch.bfloat16), stream)
-    _build.check(dll, status, "block_tail kernel launch")
+    out = launch_block_tail(h, x, w1, w2, wsa, pad=pad, x_pad=x_pad, eps=eps)
     block_tail.launches += 1
     return out
 
 
 block_tail.launches = 0
+
+# The parts of the tiled K5 that ``launch_block_tail_bwd`` can run alone
+# (timing only): the stats pass, the 7x7 adjoint in PyTorch between the
+# passes, the tile sums with the gate adjoint, the apply, the dx fold.
+BWD_STATS, BWD_ADJOINT, BWD_SUMS, BWD_APPLY, BWD_FOLD = 1, 2, 4, 8, 16
+BWD_TILED_ALL = 31
+# The parts of the resident K5 (csrc/block_tail_bwd.cu, K5_*): 1 the copies
+# in and out, 2 the grid barriers and merges, 4 the statistics, gate and
+# maps, 8 the 7x7 adjoint, 16 the tile sums and gate adjoint, 32 dh; its
+# probe takes 1, 3, 5, 9, 17, 33 and 61 at C = 256 (the rest compiled out).
+RESIDENT_BWD_ALL = 63
+
+
+def launch_block_tail_bwd(h, g, w1, w2, wsa, *, pad: int, x_pad: int,
+                          eps: float, x_dtype=None, parts: int | None = None,
+                          scratch: TailScratch | None = None):
+    """Validate, route, allocate and launch K5; counts nothing. Returns
+    (dh, dx, dw1, dw2, dwsa). ``parts`` (with a ``scratch`` made once, for
+    timing; the outputs are then not K5's): on the tiled route a sum of the
+    BWD_* flags, on the resident route at C = 256 one of the sets of K5_*
+    parts the kernel's probe takes (listed above RESIDENT_BWD_ALL)."""
+    _validate("block_tail_bwd", h, g, pad, w1, w2, wsa, pad)
+    n, hh, ww, c = h.shape
+    r = w1.shape[-1]
+    route, groups = _route(h, True)
+    if groups and x_dtype not in (None, h.dtype):
+        raise TypeError(f"block_tail_bwd kernel: x {x_dtype} with h "
+                        f"{h.dtype}: the resident kernel writes dx in h's "
+                        "dtype")
+    sc = scratch or tail_scratch(n, hh, ww, c, h.device,
+                                 resident=bool(groups), backward=True,
+                                 groups=max(groups, 1))
+    f32 = dict(dtype=torch.float32, device=h.device)
+    w1f, w2f, wsa2 = _weights(w1, w2, wsa)
+    dh = torch.empty_like(h)
+    dw1 = torch.empty((n, c, r), **f32)
+    dw2 = torch.empty((n, r, c), **f32)
+    dll = _bwd_lib()
+    stream = _stream(h.device)
+    if groups:
+        dx = torch.empty((n, hh + 2 * x_pad, ww + 2 * x_pad, c),
+                         dtype=h.dtype, device=h.device)
+        with torch.cuda.device(h.device):
+            status = dll.ducosy_block_tail_bwd_resident(
+                h.data_ptr(), g.data_ptr(), w1f.data_ptr(), w2f.data_ptr(),
+                wsa2.data_ptr(), dh.data_ptr(), dx.data_ptr(),
+                dw1.data_ptr(), dw2.data_ptr(), sc.pdwsa.data_ptr(),
+                sc.partials.data_ptr(), sc.stats.data_ptr(),
+                sc.maps.data_ptr(), sc.barrier.data_ptr(), n, hh, ww, c, r,
+                pad, x_pad, float(eps), groups,
+                RESIDENT_BWD_ALL if parts is None else parts,
+                stream)
+        _build.check(dll, status, "block_tail_bwd (resident) kernel launch")
+        # dwsa's per-tile partials (avg taps | max taps) back to HWIO
+        dwsa = sc.pdwsa.sum(dim=(0, 1)).reshape(2, SA_KERNEL, SA_KERNEL) \
+            .permute(1, 2, 0)[..., None]
+    else:
+        parts = BWD_TILED_ALL if parts is None else parts
+        bf16 = int(h.dtype == torch.bfloat16)
+        part, vec, maps = sc.partials, sc.stats, sc.maps
+        with torch.cuda.device(h.device):
+            if parts & BWD_STATS:
+                status = dll.ducosy_block_tail_bwd_stats(
+                    h.data_ptr(), g.data_ptr(), w1f.data_ptr(),
+                    w2f.data_ptr(), *_ptrs(part), *_ptrs(vec),
+                    maps.data_ptr(), n, hh, ww, c, r, pad, float(eps), bf16,
+                    stream)
+                _build.check(dll, status, "block_tail_bwd stats launch")
+            if parts & BWD_ADJOINT:
+                gs, dstat, dwsa = _spatial_adjoint(maps[:, :2], maps[:, 2:3],
+                                                   wsa)
+                maps2 = torch.cat([gs, dstat, maps[:, 1:2], maps[:, 3:4]],
+                                  dim=1)
+            else:
+                dwsa = wsa
+                maps2 = torch.empty((n, 5, hh, ww), **f32)
+            vec2 = torch.empty((n, 3, c), **f32)   # mean dy, mean dy*y, coef
+            apply = (1 if parts & BWD_SUMS else 0) | \
+                (2 if parts & BWD_APPLY else 0)
+            if apply:
+                status = dll.ducosy_block_tail_bwd_apply(
+                    h.data_ptr(), g.data_ptr(), w1f.data_ptr(),
+                    w2f.data_ptr(), *_ptrs(vec), maps2.data_ptr(),
+                    *_ptrs(part), vec2.data_ptr(), dh.data_ptr(),
+                    dw1.data_ptr(), dw2.data_ptr(), n, hh, ww, c, r, pad,
+                    bf16, apply, stream)
+                _build.check(dll, status, "block_tail_bwd apply launch")
+        dx = None
+        if parts & BWD_FOLD:
+            gf = reflect_pad_adjoint(g.to(torch.float32), pad)
+            dx = _embed(gf, x_pad).to(x_dtype or h.dtype)
+    launch_block_tail_bwd.route = route
+    return (dh, dx, dw1.sum(dim=0).to(w1.dtype), dw2.sum(dim=0).to(w2.dtype),
+            dwsa.to(wsa.dtype))
+
+
+launch_block_tail_bwd.route = None    # the route of the last K5 launch
 
 
 def block_tail_bwd(h, g, w1, w2, wsa, *, pad: int, x_pad: int,
@@ -265,43 +524,10 @@ def block_tail_bwd(h, g, w1, w2, wsa, *, pad: int, x_pad: int,
     if h.device.type == "cpu":
         return block_tail_bwd_plain(h, g, w1, w2, wsa, pad=pad, x_pad=x_pad,
                                     eps=eps, x_dtype=x_dtype)
-    _validate("block_tail_bwd", h, g, pad, w1, w2, wsa, pad)
-    n, hh, ww, c = h.shape
-    r = w1.shape[-1]
-    tiles = -(-hh * ww // TILE_M)
-    f32 = dict(dtype=torch.float32, device=h.device)
-    w1f = w1.to(torch.float32).contiguous()
-    w2f = w2.to(torch.float32).contiguous()
-    part = torch.empty((3, n, tiles, c), **f32)
-    vec = torch.empty((4, n, c), **f32)       # mean, rstd, max y, gate_c
-    maps = torch.empty((n, 4, hh, ww), **f32)  # sa_avg, sa_max, dgs, mcnt
-    bf16 = int(h.dtype == torch.bfloat16)
-    dll = _bwd_lib()
-    ptr = lambda ts: (t.data_ptr() for t in ts)
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        status = dll.ducosy_block_tail_bwd_stats(
-            h.data_ptr(), g.data_ptr(), w1f.data_ptr(), w2f.data_ptr(),
-            *ptr(part), *ptr(vec), maps.data_ptr(), n, hh, ww, c, r, pad,
-            float(eps), bf16, stream)
-        _build.check(dll, status, "block_tail_bwd stats launch")
-        gs, dstat, dwsa = _spatial_adjoint(maps[:, :2], maps[:, 2:3], wsa)
-        maps2 = torch.cat([gs, dstat, maps[:, 1:2], maps[:, 3:4]], dim=1)
-        dh = torch.empty_like(h)
-        dw1 = torch.empty((n, c, r), **f32)
-        dw2 = torch.empty((n, r, c), **f32)
-        vec2 = torch.empty((n, 3, c), **f32)   # mean dy, mean dy*y, coef
-        status = dll.ducosy_block_tail_bwd_apply(
-            h.data_ptr(), g.data_ptr(), w1f.data_ptr(), w2f.data_ptr(),
-            *ptr(vec), maps2.data_ptr(), *ptr(part), vec2.data_ptr(),
-            dh.data_ptr(), dw1.data_ptr(), dw2.data_ptr(), n, hh, ww, c, r,
-            pad, bf16, stream)
-        _build.check(dll, status, "block_tail_bwd apply launch")
+    out = launch_block_tail_bwd(h, g, w1, w2, wsa, pad=pad, x_pad=x_pad,
+                                eps=eps, x_dtype=x_dtype)
     block_tail_bwd.launches += 1
-    gf = reflect_pad_adjoint(g.to(torch.float32), pad)
-    return (dh, _embed(gf, x_pad).to(x_dtype or h.dtype),
-            dw1.sum(dim=0).to(w1.dtype), dw2.sum(dim=0).to(w2.dtype),
-            dwsa.to(wsa.dtype))
+    return out
 
 
 block_tail_bwd.launches = 0
