@@ -28,8 +28,16 @@ drives the serving path the way a user does, at full model width:
   5. the port's generate CLI on one synthetic 32-slice 512^2 DICOM patient
      with .pth checkpoints, read back from disk;
   6. the training kernels against their plain versions at the training
-     shapes (N = 8): K3 (instance_norm_bwd) on x (8, 128, 128, 256), pad 1,
-     ReLU; K4 (block_tail) and K5 (block_tail_bwd) on h (8, 128, 128, 256)
+     shapes (N = 8): K3 (instance_norm_bwd: K2's statistics launch, the
+     gradient sums, the apply, on K2's tile plan) on x (8, 128, 128, 256),
+     pad 1, ReLU, and at (3, 75, 93, 64) pad 1 and (2, 50, 70, 192) pad 0
+     without ReLU, fp32 and bf16, also held against the original five
+     launches (probe_bwd design 0) and at the training shape timed beside
+     them in alternating rounds with each time's share of the bound; then
+     "6 parts K3": K3 by parts (the original launches, the kernel's three
+     launches alone, the whole without programmatic dependent launch) and
+     its parts against the batch size, by CUDA-graph replay;
+     K4 (block_tail) and K5 (block_tail_bwd) on h (8, 128, 128, 256)
      with pad 1 / x_pad 1 and pad 0 / x_pad 1, and at (2, 50, 70, 128) and
      (2, 50, 70, 192); fp32 and bf16, with max and mean |diff|. Every K4/K5
      case prints and checks its route (resident: one cooperative launch;
@@ -56,7 +64,8 @@ drives the serving path the way a user does, at full model width:
      base 64, batch 8, bf16, trunk="tail", 7 steps (s/step: the median of
      the 6 after the first). The launch counters
      must show exactly the K2, K3, K4 and K5 calls of those steps and of the
-     validation pass, and every loss must be finite. The same steps then run
+     validation pass (K3 54 a step: 6 generator backwards x 9 blocks), and
+     every loss must be finite. The same steps then run
      with trunk="plain" from the same init and batches; both first-step
      losses, their difference, s/step, the peak memory and the remat mode
      are printed.
@@ -262,6 +271,28 @@ K2_PROBES = (("original: whole", 0, 7, None), ("tile statistics", 0, 1, None),
 # down2 (with the pad), up1 and up2 norms; under quant="full" down2's alone
 K2_PER_GEN = {None: 5, "trunk": 5, "full": 1}
 TAIL_CASES = ((1, 1), (0, 1))    # (pad, x_pad): blocks 1-8, block 9
+# K3 (shape, relu, pad): each training block's first norm, and ragged
+# shapes on the same tile plan: 6975 pixels in 28 tiles of 250 that span
+# rows, the last one part full, pad 1 and ReLU; C = 192 (21 pixel rows x 24
+# lanes a block), relu off and pad 0
+K3_CASES = ((TRAIN_SHAPE, True, 1), ((3, 75, 93, 64), True, 1),
+            ((2, 50, 70, 192), False, 0))
+K3_ROUNDS = 3
+# K3 by parts ("6 parts") at TRAIN_SHAPE, bf16, pad 1, ReLU: (label, design,
+# parts) through k2.probe_bwd. Design 0 is the original five launches (bit 1
+# the 128 x 64 tile statistics and their serial finalize, 2 the tile
+# gradient sums and their serial merge, 4 the per-pixel apply); design 1 the
+# kernel (1 K2's statistics launch, 2 the gradient sums, each with its
+# last-block merge, 4 the apply), design 2 the kernel without programmatic
+# dependent launch.
+K3_SWEEP = (2, 4, 8, 16, 32)     # batch sizes of the by-parts sweep
+K3_PROBES = (("original: whole", 0, 7),
+             ("original: statistics + finalize", 0, 1),
+             ("original: sums + merge", 0, 2),
+             ("original: per-pixel apply", 0, 4),
+             ("whole", 1, 7), ("whole without PDL", 2, 7),
+             ("statistics alone", 1, 1), ("sums alone", 1, 2),
+             ("apply alone", 1, 4))
 # K4/K5 at ragged shapes: resident (two samples side by side, 28 tiles, the
 # last one part full) and tiled (C = 192)
 TAIL_OTHER_SHAPES = ((2, 50, 70, 128), (2, 50, 70, 192))
@@ -423,6 +454,15 @@ def k2_bound(shape, pad: int, itemsize: int):
     inner = n * h * w * c
     out = n * (h + 2 * pad) * (w + 2 * pad) * c * itemsize
     return bound(inner * itemsize + out, fp32=8 * inner)
+
+
+def k3_bound(shape, pad: int, itemsize: int):
+    """K3's bound: x and the padded cotangent read once, dx written once,
+    16 fp32 operations an element."""
+    n, h, w, c = shape
+    inner = n * h * w * c
+    g = n * (h + 2 * pad) * (w + 2 * pad) * c
+    return bound((2 * inner + g) * itemsize, fp32=16 * inner)
 
 
 def check_instance_norm(k2, dev, records):
@@ -1606,34 +1646,9 @@ def check_training_kernels(k1, k2, k4, k7, dev, records):
     def act():
         return act_of(TRAIN_SHAPE)
 
-    failures = []
-    # ---- K3: the backward of each block's first norm (ReLU, pad 1)
-    x, g = act(), rand(n, hw + 2, hw + 2, c)
-    for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype)[6:]
-        xd, gd = x.to(dtype), g.to(dtype)
-        got = k2.instance_norm_bwd(xd, gd, relu=True, pad=1)
-        ref = k2.instance_norm_bwd_plain(xd, gd, relu=True, pad=1)
-        torch.cuda.synchronize()
-        x32 = xd.float()
-        xc = x32 - x32.mean(dim=(1, 2), keepdim=True)
-        y = xc * torch.rsqrt(xc.square().mean(dim=(1, 2), keepdim=True) + 1e-5)
-        keep = y.abs() > RELU_EDGE
-        atol, rtol = TRAIN_TOL[("k3", dname)]
-        ok, emax, emean = compare(got[keep], ref[keep], atol, rtol)
-        ms = cuda_ms(lambda: k2.instance_norm_bwd(xd, gd, relu=True, pad=1), 10)
-        plain_ms = cuda_ms(lambda: k2.instance_norm_bwd_plain(
-            xd, gd, relu=True, pad=1), 10)
-        log(f"K3 {tuple(xd.shape)} pad=1 relu {dname}: max|d|={emax:.3e} "
-            f"mean|d|={emean:.3e} (atol {atol}, rtol {rtol}; "
-            f"{int((~keep).sum())} elements at the ReLU edge left out) "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-            f"{'ok' if ok else 'FAIL'}")
-        records[("k3", dname)] = dict(max_abs_err=emax, ms=ms,
-                                      plain_ms=plain_ms)
-        if not ok:
-            failures.append(f"K3 {dname}")
-    del x, g, xd, gd, got, ref, x32, xc, y, keep
+    # ---- K3: the backward of each block's first norm (ReLU, pad 1), and
+    # ragged shapes
+    failures = check_k3(k2, records, act_of, rand)
 
     # ---- K4 / K5: the block tail and its backward, each call on the route
     # its shape gives (resident here in bf16), held against the plain
@@ -1665,6 +1680,163 @@ def check_training_kernels(k1, k2, k4, k7, dev, records):
     torch.cuda.empty_cache()
     if failures:
         fail(f"kernel disagrees with its plain version: {failures}")
+
+
+def relu_edge(x):
+    """Where the pre-ReLU normalized value of x (NHWC, fp32 statistics) is
+    within RELU_EDGE of 0: statistics one ulp apart may put such an element
+    on either side of the mask."""
+    import torch
+
+    x32 = x.float()
+    xc = x32 - x32.mean(dim=(1, 2), keepdim=True)
+    y = xc * torch.rsqrt(xc.square().mean(dim=(1, 2), keepdim=True) + 1e-5)
+    return y.abs() <= RELU_EDGE
+
+
+def check_k3(k2, records, act_of, rand) -> list:
+    """K3 at K3_CASES in fp32 and bf16: the kernel (the wrapper) against its
+    plain version and against the original five launches (k2.probe_bwd
+    design 0) at TRAIN_TOL, elements at the ReLU edge left out; at the
+    training shape timed beside the original launches in K3_ROUNDS
+    alternating rounds (events around back-to-back calls as for every
+    kernel, and CUDA-graph replay), each time with its share of the bound.
+    Returns the failures."""
+    import torch
+
+    failures = []
+    for shape, relu, pad in K3_CASES:
+        n, h, w, c = shape
+        x, g = act_of(shape), rand(n, h + 2 * pad, w + 2 * pad, c)
+        kw = dict(relu=relu, pad=pad)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype)[6:]
+            xd, gd = x.to(dtype), g.to(dtype)
+            got = k2.instance_norm_bwd(xd, gd, **kw)
+            ref = k2.instance_norm_bwd_plain(xd, gd, **kw)
+            old = k2.probe_bwd(xd, gd, 0, 7, **kw)
+            torch.cuda.synchronize()
+            keep = ~relu_edge(xd) if relu else torch.ones_like(xd, dtype=bool)
+            atol, rtol = TRAIN_TOL[("k3", dname)]
+            ok, emax, emean = compare(got[keep], ref[keep], atol, rtol)
+            ok_old, emax_old, _ = compare(got[keep], old[keep], atol, rtol)
+            what = f"K3 {tuple(shape)} pad={pad} relu={int(relu)} {dname}"
+            line = (f"{what}: vs plain max|d|={emax:.3e} mean|d|={emean:.3e}, "
+                    f"vs the original launches max|d|={emax_old:.3e} (atol "
+                    f"{atol}, rtol {rtol}; {int((~keep).sum())} elements at "
+                    "the ReLU edge left out)")
+            if shape == TRAIN_SHAPE:
+                bnd = k3_bound(shape, pad, xd.element_size())
+                new = lambda: k2.instance_norm_bwd(xd, gd, **kw)
+                orig = lambda: k2.probe_bwd(xd, gd, 0, 7, **kw)
+                rounds = {"kernel": [], "original": [], "kernel, graph": [],
+                          "original, graph": []}
+                for _ in range(K3_ROUNDS):
+                    rounds["kernel"].append(cuda_ms(new, 10))
+                    rounds["original"].append(cuda_ms(orig, 10))
+                    rounds["kernel, graph"].append(graph_ms(new))
+                    rounds["original, graph"].append(graph_ms(orig))
+                med = {k: statistics.median(v) for k, v in rounds.items()}
+                ms, ms_old = med["kernel"], med["original"]
+                plain_ms = cuda_ms(
+                    lambda: k2.instance_norm_bwd_plain(xd, gd, **kw), 10)
+                b = bnd["bound_ms"]
+                line += (f"; kernel {ms:.4f} ms ({b / ms:.1%} of the bound "
+                         f"{b:.4f} ms, {bnd['bound_by']}), the original "
+                         f"launches {ms_old:.4f} ms ({b / ms_old:.1%}), "
+                         f"{ms_old / ms:.2f}x; by CUDA-graph replay "
+                         f"{med['kernel, graph']:.4f} and "
+                         f"{med['original, graph']:.4f} ms; median of "
+                         f"{K3_ROUNDS} alternating rounds {rounds}; plain "
+                         f"{plain_ms:.4f} ms")
+                records[("k3", dname)] = dict(
+                    max_abs_err=emax, ms=ms, plain_ms=plain_ms,
+                    original_ms=ms_old, bound=bnd)
+            log(f"{line} {'ok' if ok and ok_old else 'FAIL'}")
+            if not (ok and ok_old):
+                failures.append(what)
+        del x, g, xd, gd, got, ref, old, keep
+    torch.cuda.empty_cache()
+    return failures
+
+
+def graph_ms(fn, calls: int = 10, reps: int = 20) -> float:
+    """Mean device milliseconds a call without the host's work: `calls`
+    calls captured in one CUDA graph (after a warm-up on a side stream),
+    replayed `reps` times between CUDA events."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * calls)
+
+
+def check_k3_parts(k2, dev, records):
+    """K3 by parts at TRAIN_SHAPE, bf16, pad 1, ReLU: the K3_PROBES rows,
+    median of 3 rounds that alternate every row; then the kernel's whole
+    and parts against the batch size (K3_SWEEP samples of 128^2 x 256).
+    Timed by CUDA-graph replay (graph_ms): a part alone is shorter than the
+    host's work a call, so events around back-to-back calls would time the
+    host. A part alone reads what the others would have left in scratch: its
+    time is right, its output is not."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    n, hw, _, c = TRAIN_SHAPE
+    bf = torch.bfloat16
+    x = k2_input(TRAIN_SHAPE, gen, dev).to(bf)
+    g = torch.randn((n, hw + 2, hw + 2, c), generator=gen, device=dev).to(bf)
+    rounds = {label: [] for label, *_ in K3_PROBES}
+    for _ in range(3):
+        for label, design, parts in K3_PROBES:
+            rounds[label].append(graph_ms(
+                lambda: k2.probe_bwd(x, g, design, parts)))
+    ms = {k: statistics.median(v) for k, v in rounds.items()}
+    records["k3parts"] = ms
+    log(f"K3 {TRAIN_SHAPE} pad=1 relu bf16 by parts (CUDA-graph replay, "
+        "median of 3 alternating rounds; the original launches, then the "
+        "kernel): " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
+    del x, g
+    # bytes each part moves once: x; x and g; x and g in, dx out
+    for ns in K3_SWEEP:
+        shape = (ns, hw, hw, c)
+        x = k2_input(shape, gen, dev).to(bf)
+        g = torch.randn((ns, hw + 2, hw + 2, c), generator=gen,
+                        device=dev).to(bf)
+        xb, gb = x.numel() * 2, g.numel() * 2
+        moved = {"whole": 2 * xb + gb, "statistics": xb, "sums": xb + gb,
+                 "apply": 2 * xb + gb}
+        rows = {}
+        for _ in range(3):
+            for label, parts in (("whole", 7), ("statistics", 1),
+                                 ("sums", 2), ("apply", 4)):
+                rows.setdefault(label, []).append(graph_ms(
+                    lambda: k2.probe_bwd(x, g, 1, parts)))
+        med = {k: statistics.median(v) for k, v in rows.items()}
+        records[("k3sweep", ns)] = med
+        log(f"K3 ({ns}, {hw}, {hw}, {c}) bf16 by parts [plan "
+            f"{tuple(k2.device_plan(x))}]: " + ", ".join(
+                f"{k} {v:.4f} ms ({moved[k] / v / 1e9:.2f} TB/s of its "
+                "bytes once)" for k, v in med.items()))
+        del x, g
+    torch.cuda.empty_cache()
 
 
 def k5_agreement(got, ref, dname: str, tol: float) -> tuple[list, list, float]:
@@ -2059,8 +2231,8 @@ def kernel_records(records) -> list:
          k2_launches, k2_rec("down2"), k2_rec("down2")["bound"], None),
         ("instance_norm_bwd", "instance_norm_bwd.cu",
          pallas + "instance_norm.py:297", train["instance_norm_bwd"],
-         records[("k3", "bfloat16")],
-         bound((2 * t_in + t_pad) * 2, fp32=16 * t_in), None),
+         records[("k3", "bfloat16")], records[("k3", "bfloat16")]["bound"],
+         None),
         ("block_tail", "block_tail.cu", pallas + "cbam_block.py:108",
          train["block_tail"], records[("k4", 1, "bfloat16")],
          bound((t_in + 2 * t_pad) * 2, fp32=12 * t_in + 196 * tn * hw * hw),
@@ -2120,8 +2292,11 @@ def kernel_records(records) -> list:
          records["launches"]["conv3x3"], records[("conv", "bf16")],
          bound(carry + wts * 2 + 2 * inner, bf16=cf),
          records[("conv", "bf16")]["library_ms"]))
+    # K3 carries the original launches' time beside the kernel's
     return [dict(name=name, route="cuda", source=csrc + src, replaces=rep,
-                 launches=launches, **pick(rec), **bnd, library_ms=lib)
+                 launches=launches, **pick(rec), **bnd, library_ms=lib,
+                 **({"original_ms": rec["original_ms"]}
+                    if "original_ms" in rec else {}))
             for name, src, rep, launches, rec, bnd, lib in rows]
 
 
@@ -2214,6 +2389,7 @@ def main() -> None:
     phase("5q", run_cli_phase, k1, k2, st, lung, flags=("--quant", "trunk"))
     phase("6", check_training_kernels, k1, k2, k4, k7, dev, records)
     phase("6 parts", check_tail_parts, k1, k4, k7, dev, records)
+    phase("6 parts K3", check_k3_parts, k2, dev, records)
     with tempfile.TemporaryDirectory() as run_dir:
         phase("7", run_training_phase, k2, k4, Path(run_dir), records)
         phase("8", run_masked_cli_phase, k1, k2, dev, Path(run_dir))

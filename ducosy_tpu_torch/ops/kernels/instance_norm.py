@@ -13,18 +13,25 @@ serving path), and ``instance_norm_int8`` writes shifted-grid int8 for an
 int8 conv (each block's first norm of the tail trunk under quantized
 serving).
 
-The kernel is two launches: a block of the first reduces its tile of
-pixels x all channels, and the last block of a sample to finish merges the
-sample's tiles; the second normalizes. ``plan`` cuts the batch into the
-tiles from the shape and the SM count (a pure function, so the CPU tests
-hold it).
+K2 is two launches: a block of the first reduces its tile of pixels x all
+channels, and the last block of a sample to finish merges the sample's
+tiles; the second normalizes. ``plan`` cuts the batch into the tiles from the
+shape and the SM count (a pure function, so the CPU tests hold it).
 
-The kernels (``csrc/instance_norm.cu``, ``csrc/instance_norm_bwd.cu``) are
-CUDA C++; K3 shares its statistics code with K1, K2 Chan's merge step
-(csrc/common.cuh). The ``*_plain`` functions are the same math in plain
-PyTorch: the TPU package's XLA
-composition (fp32 centred statistics, eps 1e-5, no affine; the int8 write
-quantizes the value rounded to the io dtype) and its analytic backward
+K3 replaces ``instance_norm_bwd_pallas`` (instance_norm.py:297), the
+backward of each training block's first norm. It runs three launches on
+K2's plan, each after the first started early by programmatic dependent
+launch: K2's own statistics launch, then the masked, folded gradient sums
+(the last block of a sample merges them into mean(g) and mean(g*y)), then
+the apply; every access is 16 bytes wide. ``probe_bwd`` reaches it by parts,
+without programmatic dependent launch, and the original five launches, for
+measurement only.
+
+The kernels (``csrc/instance_norm.cu``, ``csrc/instance_norm_bwd.cu``, their
+shared statistics launch in ``csrc/in_tiles.cuh``) are CUDA C++. The
+``*_plain`` functions are the same math in plain PyTorch: the TPU package's
+XLA composition (fp32 centred statistics, eps 1e-5, no affine; the int8
+write quantizes the value rounded to the io dtype) and its analytic backward
 (instance_norm.py:456-466).
 """
 from __future__ import annotations
@@ -48,7 +55,7 @@ from ducosy_tpu_torch.ops.quant import (
     quantize_shifted,
 )
 
-TILE_M = 128   # pixels per statistics tile of K3 (csrc/common.cuh)
+TILE_M = 128   # pixels per tile of the original launches (csrc/common.cuh)
 TILE_N = 64    # channels per tile; C must be a multiple
 
 # K2's plan (csrc/instance_norm.cu): blocks of IN_THREADS threads, one
@@ -143,9 +150,10 @@ def device_plan(x: torch.Tensor) -> Plan:
 
 
 def _validate(x: torch.Tensor, pad: int, phases: int = 1,
-              k2: bool = False) -> None:
+              k2: bool = False, g: torch.Tensor | None = None) -> None:
     """Refuse what the kernels do not take, shape first, then the device;
-    ``k2`` adds K2's limit on C (one block's 16-byte lanes)."""
+    ``k2`` adds the tile plan's limit on C (one block's 16-byte lanes), ``g``
+    K3's cotangent of the (pad-folded) output."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"instance_norm kernel: dtype {x.dtype} (float32 or "
                         "bfloat16 only)")
@@ -165,6 +173,12 @@ def _validate(x: torch.Tensor, pad: int, phases: int = 1,
     if phases < 1 or c % phases:
         raise ValueError(f"instance_norm kernel: phases={phases} must divide "
                          f"C={c}")
+    want = (n, h + 2 * pad, w + 2 * pad, c)
+    if g is not None and (tuple(g.shape) != want or g.dtype != x.dtype
+                          or g.device != x.device or not g.is_contiguous()):
+        raise ValueError(f"instance_norm_bwd kernel: g {tuple(g.shape)} "
+                         f"{g.dtype} on {g.device}; expected a contiguous "
+                         f"{want} {x.dtype} tensor on {x.device}")
     if x.device.type != "cuda":
         raise ValueError(f"instance_norm kernel: tensor on {x.device}; the "
                          "kernel takes CUDA tensors (CPU runs the plain path)")
@@ -294,11 +308,47 @@ def instance_norm_bwd_plain(x: torch.Tensor, g: torch.Tensor, *,
 @functools.cache
 def _bwd_lib() -> ctypes.CDLL:
     dll = _build.load_library("instance_norm_bwd")
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dll.ducosy_instance_norm_bwd.restype = i
-    dll.ducosy_instance_norm_bwd.argtypes = [p] * 11 + [i] * 6 + [
-        ctypes.c_float, i, p]
+    dll.ducosy_instance_norm_bwd.argtypes = [p] * 12 + [i] * 6 + [f] + \
+        [i] * 4 + [p]
+    dll.ducosy_instance_norm_bwd_probe.restype = i
+    dll.ducosy_instance_norm_bwd_probe.argtypes = [p] * 12 + [i] * 6 + [f] + \
+        [i] * 6 + [p]
     return dll
+
+
+def _launch_bwd(x: torch.Tensor, g: torch.Tensor, relu: bool, pad: int,
+                eps: float, probe: tuple[int, int] | None = None
+                ) -> torch.Tensor:
+    """dx from K3 on K2's plan for x, or with ``probe`` = (design, parts)
+    through the by-parts entry point. Scratch, fp32: per-tile partials
+    (4, n, tiles, c) (the statistics' means and M2s, then sum(g) and
+    sum(g*y); design 0 has ceil(h*w / 128) tiles), per-sample mean, 1/std,
+    mean(g), mean(g*y) (4, n, c); two arrival counters a sample (zeroed by
+    the call)."""
+    n, h, w, c = x.shape
+    pl = device_plan(x)
+    tiles = -(-h * w // TILE_M) if probe and probe[0] == 0 else pl.tiles
+    part = x.new_empty((4, n, tiles, c), dtype=torch.float32)
+    stats = x.new_empty((4, n, c), dtype=torch.float32)
+    done = x.new_empty((2, n), dtype=torch.int32)
+    dx = x.new_empty(x.shape)
+    dll = _bwd_lib()
+    args = (x.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            *(t.data_ptr() for t in part), *(t.data_ptr() for t in stats),
+            done.data_ptr(), n, h, w, c, int(relu), pad, float(eps),
+            pl.group, pl.tiles, pl.tile)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        bf16 = int(x.dtype == torch.bfloat16)
+        if probe is None:
+            status = dll.ducosy_instance_norm_bwd(*args, bf16, stream)
+        else:
+            status = dll.ducosy_instance_norm_bwd_probe(*args, *probe, bf16,
+                                                        stream)
+    _build.check(dll, status, "instance_norm_bwd kernel launch")
+    return dx
 
 
 def instance_norm_bwd(x: torch.Tensor, g: torch.Tensor, *, relu: bool = False,
@@ -309,33 +359,30 @@ def instance_norm_bwd(x: torch.Tensor, g: torch.Tensor, *, relu: bool = False,
     tensor, the plain version for a CPU tensor."""
     if x.device.type == "cpu":
         return instance_norm_bwd_plain(x, g, relu=relu, pad=pad, eps=eps)
-    _validate(x, pad)
-    n, h, w, c = x.shape
-    if g.shape != (n, h + 2 * pad, w + 2 * pad, c) or g.dtype != x.dtype \
-            or g.device != x.device or not g.is_contiguous():
-        raise ValueError(f"instance_norm_bwd kernel: g {tuple(g.shape)} "
-                         f"{g.dtype} on {g.device}; expected a contiguous "
-                         f"{(n, h + 2 * pad, w + 2 * pad, c)} {x.dtype} "
-                         f"tensor on {x.device}")
-    tiles = -(-h * w // TILE_M)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    dx = torch.empty_like(x)
-    part = torch.empty((4, n, tiles, c), **f32)
-    stats = torch.empty((4, n, c), **f32)
-    dll = _bwd_lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        status = dll.ducosy_instance_norm_bwd(
-            x.data_ptr(), g.data_ptr(), dx.data_ptr(),
-            *(t.data_ptr() for t in part), *(t.data_ptr() for t in stats),
-            n, h, w, c, int(relu), pad, float(eps),
-            int(x.dtype == torch.bfloat16), stream)
-    _build.check(dll, status, "instance_norm_bwd kernel launch")
+    _validate(x, pad, k2=True, g=g)
+    dx = _launch_bwd(x, g, relu, pad, eps)
     instance_norm_bwd.launches += 1
     return dx
 
 
 instance_norm_bwd.launches = 0
+
+
+def probe_bwd(x: torch.Tensor, g: torch.Tensor, design: int, parts: int, *,
+              relu: bool = True, pad: int = 1,
+              eps: float = EPS_INSTANCE_NORM) -> torch.Tensor:
+    """K3 by parts, for measurement only (not counted): ``design`` 1 is the
+    kernel (``parts`` 1 the statistics, 2 the gradient sums, each with its
+    last-block merge, 4 the apply), 2 the same with each launch after the
+    one before it (no programmatic dependent launch), 0 the original five
+    launches (1 the 128 x 64 tile statistics and their serial finalize, 2
+    the tile gradient sums and their serial merge, 4 the per-pixel apply).
+    Returns dx (meaningful with parts 7 only)."""
+    _validate(x, pad, k2=True, g=g)
+    if design not in (0, 1, 2) or not 1 <= parts <= 7:
+        raise ValueError(f"instance_norm_bwd probe: design {design} parts "
+                         f"{parts} (design 0-2, parts 1-7)")
+    return _launch_bwd(x, g, relu, pad, eps, probe=(design, parts))
 
 
 class _InstanceNormFn(torch.autograd.Function):
