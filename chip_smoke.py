@@ -50,8 +50,13 @@ drives the serving path the way a user does, at full model width:
      and 1, pad 1 and 0, bf16 and fp32, with the share of int8 t codes
      that agree (k = 1); K2's int8 write (16, 128, 128, 256) pad 1 bf16
      (code agreement) and its phase pooling (16, 128, 128, 512), 4 phases,
-     bf16 and fp32; P3 (tap_probe), int8 exact, TOP/s of int8 and bf16 at
-     (16384, 256) x (256, 256) with 9 and 36 taps;
+     bf16 and fp32; P3 (tap_probe) at (16384, 256) x (256, 256) with 9 and
+     36 taps, int8 exact and bf16 within PROBE_BF16_RTOL, the kernel and
+     its original mma.sync / WMMA kernels against the plain version, with
+     one library call held to the same reference (torch._int_mm; torch.mm
+     for bf16), the three timed in alternating rounds by CUDA events and by
+     CUDA-graph replay, and the int8 / bf16 rate on wgmma; "3q P3 parts":
+     P3 by parts (loads, MMAs, store) by CUDA-graph replay;
   4q. the engine at quant="trunk" and quant="full" (bf16, chain trunk, the
      phase-4 generators and phantom): exact K1q and K2 launch counts,
      slices/s beside the bf16 chain path, and both fidelity taps against
@@ -179,6 +184,10 @@ CODE_SHARE = 0.999
 K2P_SHAPE = (N, 128, 128, 512)
 PROBE_SHAPE = (16384, 256, 256)
 PROBE_BF16_RTOL = 1e-4
+# P3 by parts: (label, parts) of tap_probe.probe's design 1, the kernel
+# with parts compiled out (1 the operands' loads, 2 the MMAs, 4 the store)
+P3_PARTS = (("whole", 7), ("load", 1), ("MMAs", 2), ("store", 4),
+            ("load + MMAs", 3))
 QUANT_MEAN_DHU_MAX = 25.0
 
 # K7 / K8 (the mega trunk's two kernels), tolerances set before any run:
@@ -871,7 +880,8 @@ def check_k2p(k2, dev, records):
         fail(f"kernel disagrees with its plain version: {failures}")
 
 
-def check_tap_probe(tap, dev, records):
+def p3_operands(dev):
+    """The probe's int8 and bf16 operands at PROBE_SHAPE, from the seed."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
@@ -882,42 +892,132 @@ def check_tap_probe(tap, dev, records):
                        dtype=torch.int8)
     a16 = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
     b16 = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
+    return (("int8", a8, b8), ("bf16", a16, b16))
+
+
+def p3_library(a, b, taps: int):
+    """One library call of the same value and work, the taps laid along K:
+    (m, taps k) x (taps k, n), torch._int_mm for int8, torch.mm with an fp32
+    out for bf16. Returns (fn, its name)."""
+    import torch
+
+    at, bt = a.repeat(1, taps), b.repeat(taps, 1)
+    if a.dtype == torch.int8:
+        return (lambda: torch._int_mm(at, bt)), "torch._int_mm"
+    return (lambda: torch.mm(at, bt, out_dtype=torch.float32)), \
+        "torch.mm(out_dtype=float32)"
+
+
+def p3_agrees(got, ref, name: str) -> tuple[bool, float]:
+    """(agrees, max |d|): int8 exact; bf16 max |d| <= PROBE_BF16_RTOL
+    max |ref|."""
+    import torch
+
+    err = float((got.double() - ref.double()).abs().max())
+    if name == "int8":
+        return bool(torch.equal(got, ref)), err
+    return err <= PROBE_BF16_RTOL * float(ref.abs().max()), err
+
+
+def check_tap_probe(tap, dev, records):
+    """Phase 3q P3: the kernel and the original kernels (tap.probe design 0)
+    against the plain version, int8 exact and bf16 within PROBE_BF16_RTOL, at
+    9 and 36 taps; the library call held to the same reference; then the
+    kernel, the original kernels and the library call timed in 3 rounds that
+    alternate them, by CUDA events (back-to-back calls: the host's work a
+    call shows) and, the kernels, by CUDA-graph replay (the device's time;
+    not the library call: a cuBLAS call captured from a new side stream
+    leaves a workspace allocated for that stream, which later phases' peak
+    memory would count). The rate loop of int8 and bf16 at 9 taps is the
+    probe's own path: its launches go on the kernels line."""
+    import torch
+
+    m, k, n = PROBE_SHAPE
     failures = []
     for taps in (9, 36):
-        for name, a, b in (("int8", a8, b8), ("bf16", a16, b16)):
+        for name, a, b in p3_operands(dev):
             got = tap.tap_matmul(a, b, taps)
+            old = tap.probe(a, b, taps, 0)
             ref = tap.tap_matmul_plain(a, b, taps)
+            lib, lib_name = p3_library(a, b, taps)
             torch.cuda.synchronize()
-            err = float((got.double() - ref.double()).abs().max())
-            ok = bool(torch.equal(got, ref)) if name == "int8" else \
-                err <= PROBE_BF16_RTOL * float(ref.abs().max())
+            ok, err = p3_agrees(got, ref, name)
+            ok_old, err_old = p3_agrees(old, ref, name)
+            ok_lib, err_lib = p3_agrees(lib(), ref, name)
+            if not ok_lib:
+                fail(f"P3 {name} x{taps}: {lib_name} differs from the "
+                     f"reference by {err_lib:.3e}")
             before = tap.tap_matmul.launches
-            ms = cuda_ms(lambda: tap.tap_matmul(a, b, taps), 20)
-            if (name, taps) == ("int8", 9):
-                # the probe's own path is its rate loop: the launches of the
-                # loop that the kernels line reports
-                records["p3_launches"] = tap.tap_matmul.launches - before
+            cuda_ms(lambda: tap.tap_matmul(a, b, taps), 20)
+            launches = tap.tap_matmul.launches - before
             plain_ms = cuda_ms(lambda: tap.tap_matmul_plain(a, b, taps), 20)
-            tops = 2.0 * m * k * n * taps / (ms * 1e-3) / 1e12
-            log(f"P3 {name} ({m},{k})x({k},{n}) x{taps}: max|d|={err:.3e} "
-                f"({'exact' if name == 'int8' else 'rel 1e-4 of max'}) "
-                f"kernel {ms:.4f} ms = {tops:.1f} TOP/s, plain {plain_ms:.4f}"
-                f" ms {'ok' if ok else 'FAIL'}")
+            calls = {"kernel": lambda: tap.tap_matmul(a, b, taps),
+                     "original": lambda: tap.probe(a, b, taps, 0),
+                     "library": lib}
+            rounds = {}
+            for _ in range(3):
+                for label, fn in calls.items():
+                    rounds.setdefault((label, "events"), []).append(
+                        cuda_ms(fn, 20))
+                    if label != "library":
+                        rounds.setdefault((label, "graph"), []).append(
+                            graph_ms(fn))
+            t = {key: statistics.median(v) for key, v in rounds.items()}
+            ops = 2.0 * m * k * n * taps
             rec = records[("p3", name, taps)] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, tops=tops)
-            if name == "int8":
-                # one library call of the same value and work: the taps laid
-                # along K, (m, taps k) x (taps k, n)
-                at, bt = a.repeat(1, taps), b.repeat(taps, 1)
-                if not torch.equal(torch._int_mm(at, bt), ref):
-                    fail("P3: the library product differs from the reference")
-                rec["library_ms"] = cuda_ms(lambda: torch._int_mm(at, bt), 20)
-                log(f"P3 int8 x{taps}: torch._int_mm over K = {taps * k} "
-                    f"{rec['library_ms']:.4f} ms")
-            if not ok:
+                max_abs_err=err, ms=t[("kernel", "events")],
+                graph_ms=t[("kernel", "graph")],
+                original_ms=t[("original", "events")],
+                original_graph_ms=t[("original", "graph")],
+                library_ms=t[("library", "events")], plain_ms=plain_ms,
+                launches=launches,
+                tops=ops / (t[("kernel", "graph")] * 1e-3) / 1e12)
+            tol = "exact" if name == "int8" else "rel 1e-4 of max"
+            log(f"P3 {name} ({m},{k})x({k},{n}) x{taps}: max|d|={err:.3e}, "
+                f"original max|d|={err_old:.3e}, {lib_name} max|d|="
+                f"{err_lib:.3e} ({tol}); median of 3 alternating rounds, "
+                "events / graph replay: "
+                + ", ".join(f"{label} {t[(label, 'events')]:.4f} / "
+                            f"{t[(label, 'graph')]:.4f} ms"
+                            for label in ("kernel", "original"))
+                + f", library {t[('library', 'events')]:.4f} ms; plain "
+                f"{plain_ms:.4f} ms; kernel {rec['tops']:.1f} "
+                f"TOP/s by graph replay; {launches} launches "
+                f"{'ok' if ok and ok_old else 'FAIL'}")
+            if not (ok and ok_old):
                 failures.append(f"P3 {name} x{taps}")
+            del got, old, ref
+    for taps in (9, 36):
+        i8, b16 = records[("p3", "int8", taps)], records[("p3", "bf16", taps)]
+        log(f"P3 x{taps}: int8 / bf16 rate on wgmma (graph replay) "
+            f"{b16['graph_ms'] / i8['graph_ms']:.3f}x; the original kernels' "
+            f"{b16['original_graph_ms'] / i8['original_graph_ms']:.3f}x")
     if failures:
         fail(f"kernel disagrees with its plain version: {failures}")
+
+
+def check_tap_parts(tap, dev, records):
+    """P3 by parts at PROBE_SHAPE, 9 and 36 taps, both dtypes: the whole
+    kernel, its operand loads alone, its MMAs on (unloaded) resident
+    operands alone, its store alone and the loads with the MMAs (tap.probe
+    design 1); CUDA-graph replay, median of 3 rounds that alternate every
+    row. A part alone computes nothing meaningful: its time is right, its
+    output is not."""
+    import torch
+
+    for taps in (9, 36):
+        for name, a, b in p3_operands(dev):
+            rows = {}
+            for _ in range(3):
+                for label, parts in P3_PARTS:
+                    rows.setdefault(label, []).append(graph_ms(
+                        lambda: tap.probe(a, b, taps, 1, parts)))
+            med = {label: statistics.median(v) for label, v in rows.items()}
+            records[("p3parts", name, taps)] = med
+            log(f"P3 {name} x{taps} by parts (CUDA-graph replay, median of "
+                "3 alternating rounds): " + ", ".join(
+                    f"{label} {v:.4f} ms" for label, v in med.items()))
+    torch.cuda.empty_cache()
 
 
 def check_conv_in(k7, dev, records, shape=K1_SHAPE):
@@ -2215,6 +2315,7 @@ def kernel_records(records) -> list:
     tn = TRAIN_N
     t_in, t_pad = tn * hw * hw * c, tn * (hw + 2) ** 2 * c
     pm, pk, pn = PROBE_SHAPE
+    p3_int8, p3_bf16 = records[("p3", "int8", 9)], records[("p3", "bf16", 9)]
     train = records["train_launches"]
     quant = records[("launches", "trunk")]
     mega = records[("launches", "mega", "bf16")]
@@ -2253,10 +2354,14 @@ def kernel_records(records) -> list:
          pallas + "instance_norm.py:206", 0, records[("k2p", "bfloat16")],
          bound(4 * inner, fp32=8 * inner), None),
         ("tap_probe (P3, int8, 9 taps)", "tap_probe.cu",
-         "scripts/probe_int8_mosaic.py:38", records["p3_launches"],
-         records[("p3", "int8", 9)],
+         "scripts/probe_int8_mosaic.py:38", p3_int8["launches"], p3_int8,
          bound(pm * pk + pk * pn + 4 * pm * pn, int8=2.0 * pm * pk * pn * 9),
-         records[("p3", "int8", 9)]["library_ms"]),
+         p3_int8["library_ms"]),
+        ("tap_probe (P3, bf16, 9 taps)", "tap_probe.cu",
+         "scripts/probe_int8_mosaic.py:38", p3_bf16["launches"], p3_bf16,
+         bound(2 * (pm * pk + pk * pn) + 4 * pm * pn,
+               bf16=2.0 * pm * pk * pn * 9),
+         p3_bf16["library_ms"]),
         ("conv3x3_in (K7)", "conv_in.cu", pallas + "conv_in.py:119",
          mega["conv3x3_in"], records[("k7", "bfloat16")],
          bound(2 * carry + wts * 2, bf16=cf), None),
@@ -2292,11 +2397,13 @@ def kernel_records(records) -> list:
          records["launches"]["conv3x3"], records[("conv", "bf16")],
          bound(carry + wts * 2 + 2 * inner, bf16=cf),
          records[("conv", "bf16")]["library_ms"]))
-    # K3 carries the original launches' time beside the kernel's
+    # K3 and P3 carry their original launches' time beside the kernel's;
+    # P3 also its times by CUDA-graph replay (events of back-to-back calls
+    # at ~20 us read the host's work a call)
+    extra = ("original_ms", "graph_ms", "original_graph_ms")
     return [dict(name=name, route="cuda", source=csrc + src, replaces=rep,
                  launches=launches, **pick(rec), **bnd, library_ms=lib,
-                 **({"original_ms": rec["original_ms"]}
-                    if "original_ms" in rec else {}))
+                 **{k: rec[k] for k in extra if k in rec})
             for name, src, rep, launches, rec, bnd, lib in rows]
 
 
@@ -2377,6 +2484,7 @@ def main() -> None:
     phase("3q K1q", check_k1q, k1, dev, records)
     phase("3q K2p", check_k2p, k2, dev, records)
     phase("3q P3", check_tap_probe, tap_probe, dev, records)
+    phase("3q P3 parts", check_tap_parts, tap_probe, dev, records)
     phase("3m", check_conv_in, k7, dev, records)
     for shape in RAGGED_SHAPES:
         phase(f"3r {shape}", check_conv_in, k7, dev, {}, shape=shape)
