@@ -114,7 +114,30 @@ drives the serving path the way a user does, at full model width:
   8. the generate CLI serves phase 7's trained 3-channel SOFT_TISSUE
      snapshot with a seeded 2-channel LUNG generator on one synthetic 512^2
      DICOM patient, masks generated and prefetched on the host: read back
-     from disk and equal to run_patient called directly.
+     from disk and equal to run_patient called directly;
+  7r. phase 7's tail run saved as the reference's checkpoint.pth.tar
+     (trainer.py:580-596, with scheduler states), imported into a fresh
+     state on the card (networks and Adam states bit for bit), then the
+     training CLI resumed from it for one step in phase 7's run directory:
+     the epoch continues at saved + 1, every Adam step count at saved + 1,
+     finite losses, and K2-K5 launches a step equal to phase 7's;
+  9w. the generate CLI with --write_working on phase 5's patient (bf16,
+     the phase-4 generators): the fast path's exact K1 and K2 counts,
+     raw/ equal to the source series, soft_tissue/ and lung/ equal to the
+     generate_batch outputs it downloaded cast to the series dtype, and
+     the final series within 1 stored unit of phase 5's on >= 99.9% of
+     voxels;
+  9a. the same with --synthesis_mode additive: "sCECT v3", held against
+     the port's additive_composite + synthesize_volume on the CPU from the
+     same downloaded outputs (1 stored unit, 99.9%);
+  9p. each of the six postprocess methods on 9w's merged volume on the
+     card and on the CPU (1 stored unit, 99.9%), with its CUDA-event time;
+  9e. the calculate CLI (--fast --num_workers 2) on the card and with
+     --device cpu, on a tree of the phantom (POST VUE), the phantom with
+     contrast (POST STD) and 9w's final series, with seeded LPIPS weights
+     through $DUCOSY_LPIPS_WEIGHTS: host metrics equal, MS-SSIM within
+     1e-5, LPIPS within rtol 2e-4, both wall times, and the card time of
+     MS-SSIM and of LPIPS for the 32-slice patient.
 
 Any failure exits non-zero before the result lines. On success the last
 three lines are the card, a JSON object with one record per kernel, and
@@ -1667,19 +1690,12 @@ def run_quant_engine_phase(k1, k2, k4, dev, st, lung, records):
 def run_cli_phase(k1, k2, st, lung, flags=()):
     import torch
 
-    from ducosy_tpu_torch.dicom import dcmread
-    from ducosy_tpu_torch.dicom.codec import new_ct_dataset
     from ducosy_tpu_torch.cli import generate
 
     vol = chest_phantom(SLICES, SIZE, SEED + 1)
     with tempfile.TemporaryDirectory() as tmp:
-        ncct = Path(tmp, "input", "Smoke", "patient00", "POST VUE")
-        ncct.mkdir(parents=True)
-        for i, sl in enumerate(vol):
-            ds = new_ct_dataset(SIZE, SIZE, instance_number=i + 1,
-                                series_description="POST VUE")
-            ds.set_pixel_array(sl.astype(np.uint16))
-            ds.save_as(str(ncct / f"{i:04d}.dcm"))
+        write_series(Path(tmp, "input", "Smoke", "patient00", "POST VUE"),
+                     vol, "POST VUE")
         paths = {}
         for name, sd in (("st", st), ("lung", lung)):
             paths[name] = str(Path(tmp, f"{name}.pth"))
@@ -1700,19 +1716,32 @@ def run_cli_phase(k1, k2, st, lung, flags=()):
         if done != 1 or got != (2 * 3 * n_chunks,
                                 2 * K2_PER_GEN[None] * n_chunks):
             fail(f"CLI: {done} patients, launches {got}")
-        out_dir = Path(tmp, "output", "Smoke", "patient00")
-        files = sorted(out_dir.glob("*.dcm"))
-        if len(files) != SLICES:
-            fail(f"CLI wrote {len(files)} slices, expected {SLICES}")
-        for f in (files[0], files[-1]):
-            ds = dcmread(str(f))
-            if ds.pixel_array.shape != (SIZE, SIZE) or \
-                    ds.SeriesDescription != "DuCoSyGAN sCECT v2":
-                fail(f"CLI output {f.name}: {ds.pixel_array.shape} "
-                     f"{ds.SeriesDescription!r}")
+        out = read_series(Path(tmp, "output", "Smoke", "patient00"),
+                          "DuCoSyGAN sCECT v2", "CLI")
     log(f"CLI {' '.join(flags) or '(bf16)'}: 1 patient, {SLICES} slices "
         f"written and read back in {secs:.2f} s (incl. engine build), "
         f"launches K1 {got[0]} K2 {got[1]}")
+    return out
+
+
+def read_series(folder: Path, desc: str | None, what: str) -> np.ndarray:
+    """The SLICES slices of a written series, read back as one volume;
+    each slice SIZE^2, with SeriesDescription ``desc`` when given."""
+    from ducosy_tpu_torch.dicom import dcmread
+
+    files = sorted(folder.glob("*.dcm"))
+    if len(files) != SLICES:
+        fail(f"{what} wrote {len(files)} slices to {folder.name}, "
+             f"expected {SLICES}")
+    vol = []
+    for f in files:
+        ds = dcmread(str(f))
+        if ds.pixel_array.shape != (SIZE, SIZE) or \
+                (desc and ds.SeriesDescription != desc):
+            fail(f"{what} output {folder.name}/{f.name}: "
+                 f"{ds.pixel_array.shape} {ds.SeriesDescription!r}")
+        vol.append(ds.pixel_array)
+    return np.stack(vol)
 
 
 def compare_stats(got, ref):
@@ -2302,6 +2331,367 @@ def run_masked_cli_phase(k1, k2, dev, tmp: Path):
         + ", ".join(f"{k} {int(v.sum())}" for k, v in masks.items()))
 
 
+# ---------------------------------------------------------------- phase 7r
+def run_resume_phase(k2, k4, dev, tmp: Path, records):
+    """Phase 7r: phase 7's tail run saved as the reference's
+    checkpoint.pth.tar (trainer.py:580-596), imported into a fresh state
+    (networks and Adam states bit for bit), then the training CLI resumed
+    from it for one step in phase 7's run directory."""
+    import argparse
+
+    import torch
+
+    from ducosy_tpu_torch.cli import train
+    from ducosy_tpu_torch.config import SOFT_TISSUE, ModelConfig, TrainConfig
+    from ducosy_tpu_torch.train.state import NETS, create_state
+    from ducosy_tpu_torch.train.torch_resume import \
+        import_reference_checkpoint
+
+    run = tmp / "run_tail_auto"
+    saved_dir = run / "soft_tissue" / "saved_models"
+    sd = torch.load(str(saved_dir / "checkpoint.pt"), map_location="cpu",
+                    weights_only=True)
+    opts = {"opt_g": "G", "opt_d_a": "D_A", "opt_d_b": "D_B"}
+    ref = {"epoch": sd["epoch"], "best_val_loss": sd["best_val_loss"],
+           "best_epoch": sd["best_epoch"],
+           "args": argparse.Namespace(epochs=1, batch_size=TRAIN_N)}
+    for net, name in zip(NETS, ("G_A2B", "G_B2A", "D_A", "D_B")):
+        ref[f"{name}_state_dict"] = sd[net]
+    for slot, name in opts.items():
+        ref[f"optimizer_{name}_state_dict"] = sd[slot]
+        lr = sd[slot]["param_groups"][0]["lr"]
+        ref[f"scheduler_{name}_state_dict"] = {
+            "last_epoch": sd["epoch"] + 1, "base_lrs": [lr],
+            "_last_lr": [lr]}
+    path = saved_dir / "checkpoint.pth.tar"
+    torch.save(ref, str(path))
+
+    state = create_state(TrainConfig(), SOFT_TISSUE,
+                         ModelConfig(num_residual_blocks=BLOCKS), device=dev)
+    import_reference_checkpoint(str(path), state)
+    for net in NETS:
+        for k, v in getattr(state, net).state_dict().items():
+            if not torch.equal(v.cpu(), sd[net][k]):
+                fail(f"resume: {net} {k} differs from the saved tensor")
+    for slot in opts:
+        got = getattr(state, slot).state_dict()["state"]
+        for i, s0 in sd[slot]["state"].items():
+            for k in ("exp_avg", "exp_avg_sq", "step"):
+                if not torch.equal(got[i][k].cpu(), s0[k]):
+                    fail(f"resume: {slot} state {i} {k} differs")
+    del state
+    torch.cuda.empty_cache()
+
+    counters = {"instance_norm": k2.instance_norm,
+                "instance_norm_bwd": k2.instance_norm_bwd,
+                "block_tail": k4.block_tail,
+                "block_tail_bwd": k4.block_tail_bwd}
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    out = train.main([
+        "--data_root", str(tmp / "data"), "--dataset_names", "Smoke",
+        "--training_dir", str(run), "--img_size", str(SIZE),
+        "--batch_size", str(TRAIN_N), "--num_residual_blocks", str(BLOCKS),
+        "--epochs", str(sd["epoch"] + 2), "--max_steps_per_epoch", "1",
+        "--resume", str(path), "--num_workers", "8", "--trunk", "tail",
+        "--remat", "auto"])["soft_tissue"]
+    secs = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    # phase 7's launches a step (7 steps + 2 validation calls of 6
+    # generator forwards), for one step + the same validation
+    val = 2 * 6 * BLOCKS
+    p7 = records["train_launches"]
+    want = {k: (p7[k] - (val if k in ("instance_norm", "block_tail") else 0))
+            // TRAIN_STEPS + (val if k in ("instance_norm", "block_tail")
+                             else 0) for k in counters}
+    losses = {k: v for k, v in out.items() if k.startswith("loss")
+              or k in ("contrast", "val_loss")}
+    if out["epochs_run"] != 1 or not all(np.isfinite(v)
+                                         for v in losses.values()):
+        fail(f"resume: {out['epochs_run']} epochs, losses {losses}")
+    if out["oom_fallback"] or launches != want:
+        fail(f"resume launch counts {launches} != {want} (remat fallback: "
+             f"{out['oom_fallback']})")
+    after = torch.load(str(saved_dir / "checkpoint.pt"), map_location="cpu",
+                       weights_only=True)
+    if after["epoch"] != sd["epoch"] + 1:
+        fail(f"resume: saved epoch {after['epoch']}, expected "
+             f"{sd['epoch'] + 1}")
+    for slot in opts:
+        for i, s0 in sd[slot]["state"].items():
+            if float(after[slot]["state"][i]["step"]) != \
+                    float(s0["step"]) + 1:
+                fail(f"resume: {slot} state {i} step "
+                     f"{float(after[slot]['state'][i]['step'])}, saved "
+                     f"{float(s0['step'])}")
+    log(f"resume from checkpoint.pth.tar: networks and Adam states bit for "
+        f"bit; epoch {sd['epoch']} -> {after['epoch']}, Adam steps "
+        f"{float(sd['opt_g']['state'][0]['step']):.0f} -> "
+        f"{float(after['opt_g']['state'][0]['step']):.0f}; one step + "
+        f"validation in {secs:.1f} s (incl. data and model set-up), step "
+        f"{out['step_seconds'][0]:.3f} s; launches {launches}; losses "
+        f"{losses}")
+
+
+# -------------------------------------------------------- phases 9w - 9e
+def write_series(folder: Path, vol: np.ndarray, desc: str) -> None:
+    """A (Z, SIZE, SIZE) stored volume as a uint16 DICOM series."""
+    from ducosy_tpu_torch.dicom.codec import new_ct_dataset
+
+    folder.mkdir(parents=True)
+    for i, sl in enumerate(vol):
+        ds = new_ct_dataset(SIZE, SIZE, instance_number=i + 1,
+                            series_description=desc)
+        ds.set_pixel_array(sl.astype(np.uint16))
+        ds.save_as(str(folder / f"{i:04d}.dcm"))
+
+
+def within_one(got, ref) -> tuple[float, int]:
+    """(share of voxels within 1 stored unit, max |d|)."""
+    d = np.abs(got.astype(np.int64) - ref.astype(np.int64))
+    return float(np.mean(d <= 1)), int(d.max())
+
+
+def run_generate_working(k1, k2, st, lung, tmp: Path, tag: str, flags):
+    """The generate CLI with --write_working (+ ``flags``) on phase 5's
+    patient under ``tmp``: exact fast-path K1/K2 counts, the three working
+    series, and the generate_batch outputs it downloaded (captured)."""
+    import torch
+
+    from ducosy_tpu_torch.cli import generate
+    from ducosy_tpu_torch.infer.engine import DualGeneratorEngine
+
+    vol = chest_phantom(SLICES, SIZE, SEED + 1)     # phase 5's patient
+    if not (tmp / "input").is_dir():
+        write_series(tmp / "input" / "Smoke" / "patient00" / "POST VUE",
+                     vol, "POST VUE")
+        for name, sd in (("st", st), ("lung", lung)):
+            torch.save({k: torch.from_numpy(v) for k, v in sd.items()},
+                       str(tmp / f"{name}.pth"))
+    captured = []
+    original = DualGeneratorEngine.generate_batch
+
+    def capture(self, *args, **kwargs):
+        out = original(self, *args, **kwargs)
+        captured.append(out)
+        return out
+
+    k1.residual_chain.launches = k2.instance_norm.launches = 0
+    DualGeneratorEngine.generate_batch = capture
+    t0 = time.perf_counter()
+    try:
+        done = generate.main([
+            "--input_dir_root", str(tmp / "input"),
+            "--working_dir_root", str(tmp / f"working_{tag}"),
+            "--output_dir_root", str(tmp / f"output_{tag}"),
+            "--dataset_names", "Smoke", "--img_size", str(SIZE),
+            "--slice_batch", str(N), "--soft_tissue_model",
+            str(tmp / "st.pth"), "--lung_model", str(tmp / "lung.pth"),
+            "--write_working", *flags])
+    finally:
+        DualGeneratorEngine.generate_batch = original
+    secs = time.perf_counter() - t0
+    n_chunks = -(-SLICES // N)
+    got = (k1.residual_chain.launches, k2.instance_norm.launches)
+    want = (2 * 3 * n_chunks, 2 * K2_PER_GEN[None] * n_chunks)
+    if done != 1 or len(captured) != 1 or got != want:
+        fail(f"{tag}: {done} patients, {len(captured)} generate_batch "
+             f"calls, launches {got} != {want}")
+    out = captured[0]
+    wdir = tmp / f"working_{tag}" / "Smoke" / "patient00"
+    raw = read_series(wdir / "raw", "POST VUE", tag)
+    if not np.array_equal(raw, vol.astype(np.uint16)):
+        fail(f"{tag}: raw/ is not the source series")
+    for sub, key in (("soft_tissue", "st_stored"), ("lung", "lung_stored")):
+        got_sub = read_series(wdir / sub, "Synthetic CECT (from POST VUE)",
+                              tag)
+        if not np.array_equal(got_sub, out[key].astype(np.uint16)):
+            fail(f"{tag}: {sub}/ is not generate_batch's {key} cast to "
+                 "the series dtype")
+    log(f"CLI --write_working {' '.join(flags)}: 1 patient, {SLICES} "
+        f"slices, working series raw/soft_tissue/lung and the final series "
+        f"written and read back in {secs:.2f} s (incl. engine build); "
+        f"launches K1 {got[0]} K2 {got[1]}")
+    return vol, out, tmp / f"output_{tag}" / "Smoke" / "patient00"
+
+
+def run_working_phase(k1, k2, st, lung, tmp: Path, fast_series, gen):
+    """Phase 9w: --write_working, overwrite synthesis; the final series
+    against phase 5's fast-path series."""
+    vol, out, final_dir = run_generate_working(k1, k2, st, lung, tmp,
+                                               "overwrite", ())
+    final = read_series(final_dir, "DuCoSyGAN sCECT v2", "9w")
+    share, dmax = within_one(final, fast_series)
+    log(f"--write_working final series vs the fast path (phase 5): |d|<=1 "
+        f"on {share:.6f} of voxels, max |d| {dmax} stored units")
+    if share < STORED_UNIT_SHARE:
+        fail(f"9w: final series vs the fast path {share} < "
+             f"{STORED_UNIT_SHARE}")
+    gen.update(vol=vol, out=out, final=final)
+
+
+def run_additive_phase(k1, k2, st, lung, tmp: Path, gen):
+    """Phase 9a: --synthesis_mode additive; the final series against the
+    port's additive_composite + synthesize_volume on the CPU, from the
+    generate_batch outputs the CLI downloaded."""
+    import torch
+
+    from ducosy_tpu_torch.infer import synthesis
+
+    vol, out, final_dir = run_generate_working(
+        k1, k2, st, lung, tmp, "additive", ("--synthesis_mode", "additive"))
+    final = read_series(final_dir, "DuCoSyGAN sCECT v3", "9a")
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    slope, intercept = 1.0, -1024.0            # the phantom's rescale
+    merged = synthesis.additive_composite(
+        t(vol.astype(np.float32)), t(out["raw_hu"]),
+        t(out["st_stored"]) * slope + intercept,
+        t(out["lung_stored"]) * slope + intercept, slope)
+    want = synthesis.synthesize_volume(merged).numpy().astype(np.uint16)
+    share, dmax = within_one(final, want)
+    changed = float(np.mean(final != gen["final"]))
+    log(f"additive (sCECT v3) vs additive_composite + synthesize_volume on "
+        f"the CPU: |d|<=1 on {share:.6f} of voxels, max |d| {dmax}; "
+        f"differs from the overwrite series on {changed:.4f} of voxels")
+    if share < STORED_UNIT_SHARE:
+        fail(f"9a: additive series vs the CPU synthesis {share} < "
+             f"{STORED_UNIT_SHARE}")
+
+
+def run_postprocess_phase(dev, gen):
+    """Phase 9p: each postprocess method (JAX defaults, sharpening on) on
+    the card and on the CPU, on 9w's merged (overwrite) volume."""
+    import torch
+
+    from ducosy_tpu_torch.infer import postprocess, synthesis
+
+    out = gen["out"]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    merged = synthesis.composite_volume(
+        t(gen["vol"].astype(np.float32)), t(out["raw_hu"]),
+        t(out["st_stored"]), t(out["lung_stored"]))
+    on_card = merged.to(dev)
+    for method in postprocess.METHODS:
+        run = lambda: postprocess.postprocess_ct_volume(on_card, method)
+        got = run().cpu().numpy()
+        ref = postprocess.postprocess_ct_volume(merged, method).numpy()
+        share, dmax = within_one(got, ref)
+        ms = cuda_ms(run, 3)
+        log(f"postprocess {method}: card vs CPU |d|<=1 on {share:.6f} of "
+            f"voxels, max |d| {dmax}; {ms:.3f} ms a volume "
+            f"({SLICES} x {SIZE}^2, CUDA events"
+            f"{', host spline included' if method == 'interpolation' else ''}"
+            ")")
+        if share < STORED_UNIT_SHARE:
+            fail(f"9p: {method} card vs CPU {share} < {STORED_UNIT_SHARE}")
+
+
+def read_detail(root: Path) -> dict:
+    """The per-slice MS-SSIM and LPIPS columns of 9e's detail CSV."""
+    import csv
+
+    path = root / "calculated" / "detail" / "Smoke_patient00_metrics.csv"
+    with open(path) as f:
+        rows = list(csv.reader(f))
+    cols = {m: rows[0].index(f"{m}_STD_vs_Generated")
+            for m in ("ms_ssim", "lpips")}
+    return {m: np.array([float(r[c]) for r in rows[1:]])
+            for m, c in cols.items()}
+
+
+def lpips_params(seed: int) -> dict:
+    """Seeded LPIPS-AlexNet weights in the canonical layout."""
+    from ducosy_tpu_torch.eval.lpips import _CONVS
+
+    rng = np.random.default_rng(seed)
+    params, cin = {}, 3
+    for i, (_, cout, k, _, _) in enumerate(_CONVS):
+        params[f"conv{i}_w"] = rng.normal(
+            0, 0.05, (cout, cin, k, k)).astype(np.float32)
+        params[f"conv{i}_b"] = rng.normal(0, 0.05, cout).astype(np.float32)
+        params[f"lin{i}"] = np.abs(rng.normal(0, 0.1, cout)).astype(
+            np.float32)
+        cin = cout
+    return params
+
+
+def run_calculate_phase(dev, tmp: Path):
+    """Phase 9e: the calculate CLI (--fast --num_workers 2) on the card and
+    on the CPU: POST VUE the phantom, POST STD it with contrast, generated
+    9w's final series; seeded LPIPS weights through $DUCOSY_LPIPS_WEIGHTS."""
+    import os
+    import shutil
+
+    from ducosy_tpu_torch.cli import calculate
+    from ducosy_tpu_torch.eval import lpips, metrics, report
+
+    pdir = tmp / "eval_input" / "Smoke" / "patient00"
+    write_series(pdir / "POST VUE", chest_phantom(SLICES, SIZE, SEED + 1),
+                 "POST VUE")
+    write_series(pdir / "POST STD",
+                 chest_phantom(SLICES, SIZE, SEED + 1, contrast=True),
+                 "POST STD")
+    weights = str(tmp / "lpips_alex.npz")
+    lpips.save_lpips_weights_npz(lpips_params(SEED + 30), weights)
+    saved_env = os.environ.get(lpips.ENV_WEIGHTS)
+    os.environ[lpips.ENV_WEIGHTS] = weights
+    results, secs = {}, {}
+    try:
+        for device in ("cuda", "cpu"):
+            root = tmp / f"eval_output_{device}"
+            shutil.copytree(tmp / "output_overwrite", root)
+            t0 = time.perf_counter()
+            results[device] = calculate.main([
+                "--input_dir_root", str(tmp / "eval_input"),
+                "--output_dir_root", str(root), "--dataset_names", "Smoke",
+                "--fast", "--num_workers", "2", "--device", device])
+            secs[device] = time.perf_counter() - t0
+    finally:
+        if saved_env is None:
+            del os.environ[lpips.ENV_WEIGHTS]
+        else:
+            os.environ[lpips.ENV_WEIGHTS] = saved_env
+    card, host = (results[d]["Smoke/patient00"] for d in ("cuda", "cpu"))
+    for m in report.ALL_METRICS:
+        a, b = np.asarray(card[m], np.float64), np.asarray(host[m],
+                                                           np.float64)
+        if m in ("ms_ssim", "lpips"):
+            ok = np.all(np.isfinite(a)) and (
+                np.allclose(a, b, rtol=0, atol=1e-5) if m == "ms_ssim"
+                else np.allclose(a, b, rtol=2e-4, atol=0))
+        else:
+            ok = card[m] == host[m]
+        if not ok:
+            fail(f"9e: {m} on the card {card[m]} vs the CPU {host[m]}")
+    slices = {d: read_detail(tmp / f"eval_output_{d}")
+              for d in ("cuda", "cpu")}
+    d_ms = np.abs(slices["cuda"]["ms_ssim"] - slices["cpu"]["ms_ssim"])
+    r_lp = np.abs(slices["cuda"]["lpips"] / slices["cpu"]["lpips"] - 1)
+    if not (d_ms.max() <= 1e-5 and r_lp.max() <= 2e-4):
+        fail(f"9e: per-slice MS-SSIM |d| {d_ms.max()}, LPIPS rel "
+             f"{r_lp.max()} between the card and the CPU")
+    log("calculate CLI: card vs CPU host metrics equal, MS-SSIM |d| "
+        f"{abs(card['ms_ssim'][0] - host['ms_ssim'][0]):.2e} (per slice "
+        f"max {d_ms.max():.2e}), LPIPS rel "
+        f"{abs(card['lpips'][0] / host['lpips'][0] - 1):.2e} (per slice "
+        f"max {r_lp.max():.2e}); values "
+        + ", ".join(f"{m} {card[m][0]:.6g}" for m in report.ALL_METRICS)
+        + f"; wall {secs['cuda']:.2f} s (--device cuda) vs "
+        f"{secs['cpu']:.2f} s (--device cpu), 1 patient of {SLICES} x "
+        f"{SIZE}^2, 2 spawn workers, conversion included")
+    data = tmp / "eval_output_cuda" / "calculated" / "data"
+    std = report._normalize(np.load(data / "Smoke_patient00_std.npy"))
+    gen = report._normalize(np.load(data / "Smoke_patient00_generated.npy"))
+    ms_ssim_ms = cuda_ms(lambda: metrics.calculate_ms_ssim(std, gen,
+                                                           device=dev), 3)
+    lpips_ms = cuda_ms(lambda: metrics.calculate_lpips(
+        std, gen, weights_path=weights, device=dev), 3)
+    log(f"card time for one {SLICES}-slice patient (CUDA events, upload "
+        f"and per-slice download included): MS-SSIM {ms_ssim_ms:.3f} ms, "
+        f"LPIPS {lpips_ms:.3f} ms")
+
+
 def kernel_records(records) -> list:
     """One record per kernel for the result line: launches on its path,
     max |d|, measured times, and the bound computed from the shapes."""
@@ -2475,8 +2865,9 @@ def main() -> None:
 
     def phase(name, fn, *args, **kwargs):
         t0 = time.perf_counter()
-        fn(*args, **kwargs)
+        out = fn(*args, **kwargs)
         log(f"phase {name} done in {time.perf_counter() - t0:.1f} s")
+        return out
 
     phase("2", check_instance_norm, k2, dev, records)
     phase("2 parts", check_k2_parts, k2, dev, records)
@@ -2493,7 +2884,7 @@ def main() -> None:
     phase("4", run_engine_phase, k1, k2, dev, st, lung, records)
     phase("4q", run_quant_engine_phase, k1, k2, k4, dev, st, lung, records)
     phase("4m", run_mega_engine_phase, k1, k2, k7, dev, st, lung, records)
-    phase("5", run_cli_phase, k1, k2, st, lung)
+    fast_series = phase("5", run_cli_phase, k1, k2, st, lung)
     phase("5q", run_cli_phase, k1, k2, st, lung, flags=("--quant", "trunk"))
     phase("6", check_training_kernels, k1, k2, k4, k7, dev, records)
     phase("6 parts", check_tail_parts, k1, k4, k7, dev, records)
@@ -2501,6 +2892,14 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as run_dir:
         phase("7", run_training_phase, k2, k4, Path(run_dir), records)
         phase("8", run_masked_cli_phase, k1, k2, dev, Path(run_dir))
+        phase("7r", run_resume_phase, k2, k4, dev, Path(run_dir), records)
+    with tempfile.TemporaryDirectory() as gen_dir:
+        gen = {}
+        phase("9w", run_working_phase, k1, k2, st, lung, Path(gen_dir),
+              fast_series, gen)
+        phase("9a", run_additive_phase, k1, k2, st, lung, Path(gen_dir), gen)
+        phase("9p", run_postprocess_phase, dev, gen)
+        phase("9e", run_calculate_phase, dev, Path(gen_dir))
     if any(m.split(".")[0] in ("jax", "flax", "optax", "ducosy_tpu")
            for m in sys.modules):
         fail("JAX or the JAX package was imported")

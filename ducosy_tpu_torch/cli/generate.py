@@ -5,29 +5,39 @@
         --soft_tissue_model st.pth --lung_model lung.pth
 
 Same flags as the JAX CLI, plus ``--device`` (default ``cuda``; the run
-raises if no card is visible). For every patient of every dataset the NCCT
-series runs through ``DualGeneratorEngine.run_patient`` and the final
-sCECT series is written. Patient N+1's DICOM decode runs in an io thread
-while patient N computes on the card, and patient N's download and write
-follow N+1's launch. ``--quant trunk|full`` (or ``--trunk_int8``, the same
-as ``--quant trunk``) serves the quantized modes. Mask-conditioned
-checkpoints (what ``cli.train`` writes for SOFT_TISSUE and LUNG) are served
-with their masks generated on the host, the next patient's prefetched while
-this one computes; ``--soft_squeeze`` gives them the training-time input
-squeeze. ``--write_working``, ``--synthesis_mode additive`` and
-``--num_devices`` > 1 are not ported yet and raise.
+raises if no card is visible). Two modes, as the JAX CLI's:
+  - the fast path (default): every patient's NCCT series runs through
+    ``DualGeneratorEngine.run_patient`` and the final sCECT v2 series is
+    written. Patient N+1's DICOM decode runs in an io thread while patient
+    N computes on the card, and patient N's download and write follow
+    N+1's launch;
+  - ``--write_working``: ``generate_batch`` in chunks of ``--slice_batch``
+    slices, the working series raw/ (the source files copied),
+    soft_tissue/ and lung/ written under ``--working_dir_root``, then the
+    synthesis on the card: ``--synthesis_mode overwrite`` composites the
+    two outputs into the NCCT (sCECT v2), ``additive`` adds their HU
+    enhancements to it (sCECT v3). ``--synthesis_mode additive`` without
+    ``--write_working`` serves the fast path, as in the JAX CLI.
+``--quant trunk|full`` (or ``--trunk_int8``, the same as ``--quant trunk``)
+serves the quantized modes. Mask-conditioned checkpoints (what
+``cli.train`` writes for SOFT_TISSUE and LUNG) are served with their masks
+generated on the host (on the fast path the next patient's prefetched
+while this one computes); ``--soft_squeeze`` gives them the training-time
+input squeeze. ``--num_devices`` > 1 is not ported yet and raises.
 """
 from __future__ import annotations
 
 import argparse
 import glob
 import os
+import shutil
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 SERIES_DESCRIPTION = "DuCoSyGAN sCECT v2"
+ADDITIVE_DESCRIPTION = "DuCoSyGAN sCECT v3"
 
 
 def parse_args(argv=None):
@@ -46,11 +56,11 @@ def parse_args(argv=None):
     p.add_argument("--window_center", type=float, default=40.0)
     p.add_argument("--window_width", type=float, default=400.0)
     p.add_argument("--write_working", action="store_true",
-                   help="also write raw/soft_tissue/lung working DICOMs "
-                        "(not ported yet)")
+                   help="also write raw/soft_tissue/lung working DICOMs")
     p.add_argument("--synthesis_mode", type=str, default="overwrite",
                    choices=["overwrite", "additive"],
-                   help="additive needs --write_working (not ported yet)")
+                   help="overwrite = sCECT v2 compositing; additive = the "
+                        "v3 enhancement-delta path (with --write_working)")
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--num_devices", type=int, default=None,
@@ -77,16 +87,10 @@ def parse_args(argv=None):
 
 
 def _refuse_unported(args) -> None:
-    unported = {
-        "--write_working": args.write_working,
-        "--synthesis_mode additive": args.synthesis_mode != "overwrite",
-        "--num_devices": (args.num_devices or 1) > 1,
-    }
-    for flag, given in unported.items():
-        if given:
-            raise NotImplementedError(
-                f"{flag} is not ported to the PyTorch CLI yet (ROADMAP.md "
-                "Queue 1)")
+    if (args.num_devices or 1) > 1:
+        raise NotImplementedError(
+            "--num_devices is not ported to the PyTorch CLI yet (ROADMAP.md "
+            "Queue 1)")
 
 
 def _load_generator(path: str):
@@ -144,28 +148,98 @@ def _read_series(folder):
     return kept, datasets
 
 
-def _final_tags(out_ds, merged, series_description=SERIES_DESCRIPTION):
-    """Final writeback tag surgery (generate.py:272-292). The pixel data is
-    written uncompressed, so the transfer syntax is reset to Explicit VR
-    LE: a dataset read from a compressed series would otherwise keep its
-    encapsulated syntax and be written as raw bytes under it."""
+def _pixel_swap(out_ds, px, vr: str) -> None:
+    """Put ``px`` in as the pixel data, uncompressed, with the smallest and
+    largest pixel value tags (0x0028,0x0106/0107) in ``vr``. The transfer
+    syntax is reset to Explicit VR LE: a dataset read from a compressed
+    series would otherwise keep its encapsulated syntax and be written as
+    raw bytes under it."""
     from ducosy_tpu_torch.dicom.codec import EXPLICIT_VR_LE
 
     out_ds.transfer_syntax_uid = EXPLICIT_VR_LE
-    out_ds.PixelData = np.ascontiguousarray(merged).tobytes()
+    out_ds.PixelData = np.ascontiguousarray(px).tobytes()
+    out_ds.add_new((0x0028, 0x0106), vr, int(px.min()))
+    out_ds.add_new((0x0028, 0x0107), vr, int(px.max()))
+
+
+def _final_tags(out_ds, merged, series_description=SERIES_DESCRIPTION):
+    """Final writeback tag surgery (generate.py:272-292)."""
     vr = "US" if int(out_ds.get("PixelRepresentation", 0)) == 0 else "SS"
-    out_ds.add_new((0x0028, 0x0106), vr, int(merged.min()))
-    out_ds.add_new((0x0028, 0x0107), vr, int(merged.max()))
+    _pixel_swap(out_ds, merged, vr)
     out_ds.WindowWidth = float(250 - (-1000))
     out_ds.WindowCenter = float(-1000 + (250 - (-1000)) / 2)
     out_ds.SeriesDescription = series_description
 
 
-def _write_final(datasets, final, dtype, out_patient):
+def _write_final(datasets, final, dtype, out_patient,
+                 series_description=SERIES_DESCRIPTION):
     for idx, src in enumerate(datasets):
         out_ds = src.copy()
-        _final_tags(out_ds, final[idx].astype(dtype))
+        _final_tags(out_ds, final[idx].astype(dtype), series_description)
         out_ds.save_as(os.path.join(out_patient, f"{idx:04d}.dcm"))
+
+
+def _write_working(files, datasets, out, dtype, wdir) -> None:
+    """The working series (generate.py:21-134): raw/ the source files
+    copied; soft_tissue/ and lung/ each source dataset with the model's
+    stored output cast to the series dtype."""
+    for sub in ("raw", "soft_tissue", "lung"):
+        os.makedirs(os.path.join(wdir, sub), exist_ok=True)
+    for i, (path, src) in enumerate(zip(files, datasets)):
+        name = os.path.basename(path)
+        shutil.copy(path, os.path.join(wdir, "raw", name))
+        for sub, arr in (("soft_tissue", out["st_stored"][i]),
+                         ("lung", out["lung_stored"][i])):
+            ds = src.copy()
+            ds.SeriesDescription = (
+                f"Synthetic CECT (from {src.get('SeriesDescription', '')})")
+            px = arr.astype(dtype)
+            _pixel_swap(ds, px, "US" if px.dtype.kind == "u" else "SS")
+            ds.save_as(os.path.join(wdir, sub, name))
+
+
+def synthesize(engine, out, volume, slope, intercept, mode: str):
+    """The final int16 volume from ``generate_batch`` outputs, on the
+    engine's device: (volume, series description)."""
+    from ducosy_tpu_torch.infer import synthesis
+
+    dev = engine.device
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    raw = up(volume.astype(np.float32))
+    raw_hu, st, lung = up(out["raw_hu"]), up(out["st_stored"]), \
+        up(out["lung_stored"])
+    with torch.inference_mode():
+        if mode == "additive":
+            merged = synthesis.additive_composite(
+                raw, raw_hu, st * slope + intercept, lung * slope + intercept,
+                slope)
+            desc = ADDITIVE_DESCRIPTION
+        else:
+            merged = synthesis.composite_volume(
+                raw, raw_hu, st, lung, engine.st_range, engine.lung_range)
+            desc = SERIES_DESCRIPTION
+        return synthesis.synthesize_volume(merged).cpu().numpy(), desc
+
+
+def process_patient(engine, args, patient_dir, working_dir, output_dir):
+    """One patient on the working path (cli/generate.py:142-209): both
+    models over the series in chunks, the working series, the synthesis and
+    the final series. False if the patient has no readable NCCT series."""
+    loaded = _load_patient(args, patient_dir)
+    if loaded is None:
+        return False
+    files, datasets, volume, slope, intercept = loaded
+    patient_id = os.path.basename(patient_dir)
+    out = engine.generate_batch(volume, slope, intercept,
+                                chunk=args.slice_batch)
+    _write_working(files, datasets, out, volume.dtype,
+                   os.path.join(working_dir, patient_id))
+    final, desc = synthesize(engine, out, volume, slope, intercept,
+                             args.synthesis_mode)
+    out_patient = os.path.join(output_dir, patient_id)
+    os.makedirs(out_patient, exist_ok=True)
+    _write_final(datasets, final, volume.dtype, out_patient, desc)
+    return True
 
 
 def _load_patient(args, patient_dir):
@@ -178,7 +252,7 @@ def _load_patient(args, patient_dir):
     slope = float(datasets[0].get("RescaleSlope", 1.0))
     intercept = float(datasets[0].get("RescaleIntercept", 0.0))
     volume = np.stack([ds.pixel_array for ds in datasets])
-    return datasets, volume, slope, intercept
+    return files, datasets, volume, slope, intercept
 
 
 def _finish(patient_dir, datasets, dtype, out_patient, device_out) -> int:
@@ -197,7 +271,7 @@ def run_fast_pipeline(engine, args, patients, output_dir) -> int:
         data = _load_patient(args, p)
         if data is None:
             return None
-        _, volume, slope, intercept = data
+        _, _, volume, slope, intercept = data
         return (*data, engine.prefetch_masks(volume, slope, intercept))
 
     done = 0
@@ -212,7 +286,7 @@ def run_fast_pipeline(engine, args, patients, output_dir) -> int:
             data = loads.pop(pdir).result()
             if data is None:
                 continue
-            datasets, volume, slope, intercept, mask_fut = data
+            _, datasets, volume, slope, intercept, mask_fut = data
             out = engine.run_patient_async(volume, slope, intercept,
                                            chunk=args.slice_batch,
                                            masks=mask_fut)
@@ -229,16 +303,27 @@ def run_fast_pipeline(engine, args, patients, output_dir) -> int:
 def main(argv=None):
     args = parse_args(argv)
     _refuse_unported(args)
+    if args.synthesis_mode == "additive" and not args.write_working:
+        print("note: --synthesis_mode additive takes effect with "
+              "--write_working only (as in the JAX CLI); serving the fast "
+              "path (sCECT v2)")
     engine = load_engine(args)
     total = 0
     for dataset_name in args.dataset_names:
         input_dir = os.path.join(args.input_dir_root, dataset_name)
+        working_dir = os.path.join(args.working_dir_root, dataset_name)
         output_dir = os.path.join(args.output_dir_root, dataset_name)
         os.makedirs(output_dir, exist_ok=True)
         patients = sorted(d for d in glob.glob(os.path.join(input_dir, "*"))
                           if os.path.isdir(d))
         print(f"dataset {dataset_name}: {len(patients)} patients")
-        total += run_fast_pipeline(engine, args, patients, output_dir)
+        if not args.write_working:
+            total += run_fast_pipeline(engine, args, patients, output_dir)
+            continue
+        for pdir in patients:
+            if process_patient(engine, args, pdir, working_dir, output_dir):
+                total += 1
+                print(f"  done {os.path.basename(pdir)}")
     print(f"generation+synthesis complete: {total} patients")
     return total
 

@@ -45,15 +45,16 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ducosy_tpu_torch.config import LUNG, SOFT_TISSUE, RangeConfig
+from ducosy_tpu_torch.config import LUNG, SOFT_TISSUE, InferConfig, \
+    RangeConfig
 from ducosy_tpu_torch.data.dataset import resize_nearest
 from ducosy_tpu_torch.device import require_cuda
-from ducosy_tpu_torch.infer.postprocess import postprocess_volume
+from ducosy_tpu_torch.infer.synthesis import composite_volume, \
+    synthesize_volume
 from ducosy_tpu_torch.masks import generate_anatomical_masks
 from ducosy_tpu_torch.models.convert import load_torch_state_dict
 from ducosy_tpu_torch.models.generator import Generator
 from ducosy_tpu_torch.ops import hu
-from ducosy_tpu_torch.ops.filters import gaussian_filter_1d
 from ducosy_tpu_torch.ops.quant import INT8_NORM_SCALE, check_quant
 from ducosy_tpu_torch.ops.resize import resize_hw
 
@@ -167,16 +168,6 @@ class DualGeneratorEngine:
                 "lung_stored": hu.hu_to_stored(lung_hu, slope, intercept),
                 "raw_hu": hu_img}
 
-    def _composite(self, raw_stored, raw_hu, st_stored, lung_stored):
-        """Complementary compositing (generate.py:224-237): soft tissue
-        first, lung second, so lung wins the shared boundary."""
-        st = self.st_range
-        lung = self.lung_range
-        st_mask = (raw_hu >= st.hu_min) & (raw_hu <= st.hu_max)
-        lung_mask = (raw_hu >= lung.hu_min) & (raw_hu <= lung.hu_max)
-        merged = torch.where(st_mask, st_stored, raw_stored)
-        return torch.where(lung_mask, lung_stored, merged)
-
     @staticmethod
     def _masks_threaded(hu_vol: np.ndarray, mask_types,
                         n_workers: int | None = None) -> Dict[str, np.ndarray]:
@@ -264,17 +255,25 @@ class DualGeneratorEngine:
         return torch.from_numpy(arr).to(self.device)
 
     def generate_batch(self, stored: np.ndarray, slope: float,
-                       intercept: float) -> Dict[str, np.ndarray]:
+                       intercept: float, *, chunk: int | None = None
+                       ) -> Dict[str, np.ndarray]:
         """A (B, H, W) batch through both models: float32 stored-pixel
-        outputs and the raw HU, as numpy, at the input's size."""
+        outputs and the raw HU, as numpy, at the input's size. With
+        ``chunk`` the models take ``chunk`` slices a call (the last call
+        the rest), so a whole patient fits on the card; the same math."""
         out_h, out_w = stored.shape[-2:]
         slope, intercept = float(slope), float(intercept)
+        step = chunk or len(stored)
+        parts = []
         with torch.inference_mode():
             masks = self._upload_masks(None, stored, slope, intercept, 0)
-            sl = self._upload(stored).to(torch.float32)
-            out = self._forward_impl(sl, slope, intercept, out_h, out_w,
-                                     masks)
-            return {k: v.cpu().numpy() for k, v in out.items()}
+            for lo in range(0, len(stored), step):
+                sl = self._upload(stored[lo:lo + step]).to(torch.float32)
+                mk = masks and {k: v[lo:lo + step] for k, v in masks.items()}
+                out = self._forward_impl(sl, slope, intercept, out_h, out_w,
+                                         mk)
+                parts.append({k: v.cpu().numpy() for k, v in out.items()})
+        return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
 
     # ------------------------------------------------- full-patient pipeline
     def run_patient(self, stored_volume: np.ndarray, slope: float,
@@ -311,9 +310,9 @@ class DualGeneratorEngine:
                 sl = vol[lo:lo + chunk].to(torch.float32)
                 mk = masks and {k: v[lo:lo + chunk] for k, v in masks.items()}
                 out = self._forward_impl(sl, slope, intercept, h, w, mk)
-                merged[lo:lo + chunk] = self._composite(
-                    sl, out["raw_hu"], out["st_stored"], out["lung_stored"])
-            merged = gaussian_filter_1d(merged[:z], pre_z_sigma, axis=0)
-            return postprocess_volume(
-                merged, sigma_z=sigma_z, sigma_xy=sigma_xy,
-                sharpen_amount=sharpen_amount, sharpen_radius=sharpen_radius)
+                merged[lo:lo + chunk] = composite_volume(
+                    sl, out["raw_hu"], out["st_stored"], out["lung_stored"],
+                    self.st_range, self.lung_range)
+            return synthesize_volume(merged[:z], InferConfig(
+                pre_z_sigma=pre_z_sigma, sigma_z=sigma_z, sigma_xy=sigma_xy,
+                sharpen_amount=sharpen_amount, sharpen_radius=sharpen_radius))

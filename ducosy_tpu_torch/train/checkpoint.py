@@ -9,7 +9,8 @@ reference modules/trainer.py:549-597), with ``torch.save``:
     layout, which ``Generator.from_state_dict`` and the reference's own
     tools load.
 
-Importing the reference's ``checkpoint.pth.tar`` is not ported yet.
+The reference's own ``checkpoint.pth.tar`` is imported by
+``train/torch_resume.py`` (``--resume .../checkpoint.pth.tar``).
 """
 from __future__ import annotations
 

@@ -4,7 +4,8 @@
 It keeps the reference's run: the seeded patient-level 80/20 split, the
 host loader, the per-epoch lr, the non-finite-loss guard, the per-epoch
 validation (GAN + cycle + identity) with the [A | fake_B | B] image grid,
-best/last/epoch generator snapshots and the full checkpoint with resume.
+best/last/epoch generator snapshots and the full checkpoint with resume
+(from the port's own checkpoint or the reference's checkpoint.pth.tar).
 ``remat="auto"`` runs without rematerialization until a step runs out of
 device memory, then retries that step, and runs all later ones, with
 rematerialized generator forwards and loss terms. The JAX loop's mesh and multi-host
@@ -34,6 +35,7 @@ from ducosy_tpu_torch.ops.hu import apply_windowing
 from ducosy_tpu_torch.train import checkpoint as ckpt
 from ducosy_tpu_torch.train.schedule import lr_for_epoch
 from ducosy_tpu_torch.train.state import create_state
+from ducosy_tpu_torch.train.torch_resume import import_reference_checkpoint
 from ducosy_tpu_torch.train.step import make_train_step, val_step
 
 OOM_MESSAGE = ("train step exceeded HBM; retrying with remat'd generator "
@@ -42,7 +44,9 @@ OOM_MESSAGE = ("train step exceeded HBM; retrying with remat'd generator "
 
 def _resolve_resume(resume: str, saved_models_dir: str) -> str:
     """A bare name lives under saved_models/; a path is taken as given
-    (relative ones fall back to saved_models/); ``.pt`` may be left off."""
+    (relative ones fall back to saved_models/); ``.pt`` may be left off.
+    A ``.pth.tar`` is the reference's checkpoint (``_restore`` imports
+    it)."""
     cand = resume if os.path.isabs(resume) or os.sep in resume \
         else os.path.join(saved_models_dir, resume)
     if not os.path.exists(cand) and not os.path.isabs(resume):
@@ -51,11 +55,19 @@ def _resolve_resume(resume: str, saved_models_dir: str) -> str:
             cand = alt
     if not os.path.exists(cand) and os.path.exists(cand + ".pt"):
         cand += ".pt"
-    if cand.endswith(".pth.tar"):
-        raise NotImplementedError(
-            f"{cand}: importing the reference's checkpoint.pth.tar is not "
-            "ported yet; --resume takes this port's own checkpoint.pt")
     return cand
+
+
+def _restore(path: str, state) -> bool:
+    """Load the checkpoint at ``path`` into ``state``: the port's own
+    ``checkpoint.pt``, or the reference's ``checkpoint.pth.tar``
+    (train/torch_resume.py). False if there is no file at path."""
+    if not path.endswith(".pth.tar"):
+        return ckpt.restore_checkpoint(path, state)
+    if not os.path.isfile(path):
+        return False
+    import_reference_checkpoint(path, state)
+    return True
 
 
 def _to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -102,7 +114,7 @@ def train_cycle_gan(cfg: TrainConfig, target_range: str,
     best = ckpt.BestTracker(saved_models_dir)
     if cfg.resume:
         cand = _resolve_resume(cfg.resume, saved_models_dir)
-        if ckpt.restore_checkpoint(cand, state):
+        if _restore(cand, state):
             start_epoch = state.epoch + 1
             best.best_val, best.best_epoch = state.best_val_loss, \
                 state.best_epoch

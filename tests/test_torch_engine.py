@@ -306,15 +306,39 @@ def test_generate_cli_writes_quantized_series(tmp_path, flags, quant):
         np.testing.assert_array_equal(dcmread(str(f)).pixel_array, want[i])
 
 
-@pytest.mark.parametrize("flags", [
-    ["--write_working"], ["--num_devices", "2"],
-    ["--synthesis_mode", "additive"], ["--soft_squeeze", "--write_working"]],
+@pytest.mark.parametrize("flags,desc", [
+    (["--write_working"], "DuCoSyGAN sCECT v2"),
+    (["--num_devices", "2"], None),
+    (["--synthesis_mode", "additive"], "DuCoSyGAN sCECT v2"),
+    (["--soft_squeeze", "--write_working"], "DuCoSyGAN sCECT v2")],
     ids=["flags0", "flags3", "flags4", "flags5"])
-def test_generate_cli_refuses_unported_flags(flags):
-    """--soft_squeeze is ported (test_generate_cli_serves_trained_snapshots
-    runs it); beside an unported flag the run is still refused."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tgen.main(["--dataset_names", "none", "--device", "cpu", *flags])
+def test_generate_cli_refuses_unported_flags(tmp_path, flags, desc):
+    """Only --num_devices > 1 is still refused. --write_working (also with
+    --soft_squeeze) runs the working path and writes the working series;
+    --synthesis_mode additive without it serves the fast path, as the JAX
+    CLI does (tests/test_torch_synthesis.py holds both paths' numbers)."""
+    if desc is None:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            tgen.main(["--dataset_names", "none", "--device", "cpu", *flags])
+        return
+    write_dataset(str(tmp_path / "input"), n_patients=1, n_slices=2,
+                  size=SIZE)
+    path = str(tmp_path / "g.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in
+                init_generator_state_dict(3, 1, BASE, 1).items()}, path)
+    assert tgen.main([
+        "--input_dir_root", str(tmp_path / "input"),
+        "--working_dir_root", str(tmp_path / "working"),
+        "--output_dir_root", str(tmp_path / "output"),
+        "--dataset_names", "SynthSet", "--img_size", str(SIZE),
+        "--soft_tissue_model", path, "--lung_model", path,
+        "--compute_dtype", "float32", "--device", "cpu", *flags]) == 1
+    out = sorted((tmp_path / "output" / "SynthSet" / "patient00")
+                 .glob("*.dcm"))
+    assert len(out) == 2
+    assert all(dcmread(str(f)).SeriesDescription == desc for f in out)
+    working = tmp_path / "working" / "SynthSet" / "patient00"
+    assert working.is_dir() == ("--write_working" in flags)
 
 
 def test_generate_cli_loads_npz_params(tmp_path):

@@ -8,12 +8,14 @@ agree with the originals.
     imports every module of the port and builds and runs a CPU engine;
 (c) the copies against their originals on the same inputs: config constants
     field by field, DICOM files byte for byte through both codecs, mask
-    arrays, patient pairing and loader batches; and the two things the
+    arrays, patient pairing and loader batches, the evaluation suite's host
+    metrics (same source, same values); and the two things the
     port's copies do differently (the native parser's build at first use,
     ``set_pixel_array`` resetting a compressed source's transfer syntax).
 """
 import ast
 import dataclasses
+import inspect
 import os
 import pkgutil
 import subprocess
@@ -26,6 +28,7 @@ import ducosy_tpu.config as jconfig
 import ducosy_tpu.data.loader as jloader
 import ducosy_tpu.data.pairing as jpairing
 import ducosy_tpu.dicom.codec as jcodec
+import ducosy_tpu.eval.metrics as jmetrics
 import ducosy_tpu.masks as jmasks
 import ducosy_tpu_torch
 import ducosy_tpu_torch.config as tconfig
@@ -34,6 +37,7 @@ import ducosy_tpu_torch.data.pairing as tpairing
 import ducosy_tpu_torch.dicom.codec as tcodec
 import ducosy_tpu_torch.dicom.compressed as tcompressed
 import ducosy_tpu_torch.dicom.native as tnative
+import ducosy_tpu_torch.eval.metrics as tmetrics
 import ducosy_tpu_torch.masks as tmasks
 from ducosy_tpu.data.dataset import SlicePairDataset as JaxDataset
 from ducosy_tpu_torch.data.dataset import SlicePairDataset
@@ -78,7 +82,9 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
         ducosy_tpu_torch.__path__, "ducosy_tpu_torch.")]
     for mod in ("config", "dicom.codec", "dicom.native", "masks.anatomy",
                 "data.loader", "data.pairing", "utils.logging",
-                "ops.kernels.conv_in", "ops.kernels.proto_conv_in"):
+                "ops.kernels.conv_in", "ops.kernels.proto_conv_in",
+                "eval.metrics", "eval.lpips", "eval.report", "cli.calculate",
+                "infer.synthesis", "train.torch_resume"):
         assert f"ducosy_tpu_torch.{mod}" in names, mod
     code = f"""
 import importlib, importlib.abc, sys
@@ -298,3 +304,19 @@ def test_pairing_and_loader_batches_match_original(tmp_path):
         assert set(got) == set(want) and {"a", "b", "masks"} <= set(got)
         for k in want:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+# ------------------------------------------------- (c) eval host metrics
+@pytest.mark.parametrize("name", sorted(jmetrics.BASIC_METRICS))
+def test_eval_host_metric_matches_original(name):
+    """The numpy/scipy metrics are copies: the same source text and equal
+    (value, per-slice) results, on volumes with a constant slice and an
+    identical slice (the zero-range, zero-MSE and zero-norm branches)."""
+    a, b = jmetrics.BASIC_METRICS[name], tmetrics.BASIC_METRICS[name]
+    assert inspect.getsource(a) == inspect.getsource(b)
+    rng = np.random.default_rng(3)
+    v1 = rng.uniform(-1000, 1500, (4, 40, 36)).astype(np.float32)
+    v2 = (v1 + rng.normal(0, 30, v1.shape)).astype(np.float32)
+    v1[1] = v2[1] = 0.0
+    v2[2] = v1[2]
+    assert b(v1, v2) == a(v1, v2)

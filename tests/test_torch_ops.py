@@ -117,7 +117,8 @@ def test_postprocess_gaussian3d_matches_jax():
     vol = rng.uniform(0, 1600, (6, 24, 24)).astype(np.float32)
     kw = dict(sigma_z=0.7, sigma_xy=0.05, sharpen_amount=1.7,
               sharpen_radius=1.2)
-    got = tpost.postprocess_volume(torch.from_numpy(vol), **kw).numpy()
+    got = tpost.postprocess_ct_volume(torch.from_numpy(vol), "gaussian3d",
+                                      **kw).numpy()
     ref = np.asarray(jpost._postprocess_impl(
         jnp.asarray(vol), method="gaussian3d", enhance_sharpness=True,
         hu_threshold=tpost.RESTORE_THRESHOLD, sigma=1.0, base_sigma=1.5,
