@@ -139,6 +139,23 @@ drives the serving path the way a user does, at full model width:
      1e-5, LPIPS within rtol 2e-4, both wall times, and the card time of
      MS-SSIM and of LPIPS for the 32-slice patient.
 
+  10t. the data-parallel training step: two ranks on this card over gloo
+     (NCCL refuses two ranks on one device), spawned by
+     ``parallel.launch`` and each taking 4 rows of phase 7's tree, against
+     one rank of 8, from the same seeded init, 3 steps, full width, bf16,
+     tail trunk, remat off: the ranks' parameters equal after every step,
+     the first step's losses, the first step's gradient and the update's
+     relative L2 over the weights, K2-K5 54 launches a step on each rank,
+     seconds a step; the card's free memory is logged before spawning;
+  10s. the engine with ``mesh=data_mesh(devices=[cuda:0, cuda:0])`` (two
+     replicas on this card) on phase 4's patient, bf16 chain, chunk 16 in
+     parts of 8: K1 24 and K2 40 launches, the series against one device
+     called on the same parts and against phase 4's series, fp32 replicas
+     against one fp32 device, slices/s;
+  10n. with two cards or more: 10t and 10s on cuda:0 and cuda:1 over NCCL,
+     and both CLIs with --num_devices 2; on one card it prints that it was
+     not run.
+
 Any failure exits non-zero before the result lines. On success the last
 three lines are the card, a JSON object with one record per kernel, and
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -756,6 +773,7 @@ def run_engine_phase(k1, k2, dev, st, lung, records):
     dhu = np.abs(out_fast.astype(np.float64) - ref32.astype(np.float64))
     log(f"engine bf16 chain vs fp32 plain: |dHU| mean {dhu.mean():.4f} p99 "
         f"{np.percentile(dhu, 99):.4f} max {dhu.max():.1f}")
+    return out_fast
 
 
 # a serving rate on the routed path may read this far below the same run's
@@ -2199,6 +2217,7 @@ def run_training_phase(k2, k4, tmp: Path, records):
             "--img_size", str(SIZE), "--batch_size", str(TRAIN_N),
             "--num_residual_blocks", str(BLOCKS), "--epochs", "1",
             "--max_steps_per_epoch", str(TRAIN_STEPS), "--resume", "",
+            "--num_devices", "1",
             "--num_workers", "8", "--trunk", trunk, "--remat", remat])
         out = out["soft_tissue"]
         secs = time.perf_counter() - t0
@@ -2395,7 +2414,7 @@ def run_resume_phase(k2, k4, dev, tmp: Path, records):
         "--batch_size", str(TRAIN_N), "--num_residual_blocks", str(BLOCKS),
         "--epochs", str(sd["epoch"] + 2), "--max_steps_per_epoch", "1",
         "--resume", str(path), "--num_workers", "8", "--trunk", "tail",
-        "--remat", "auto"])["soft_tissue"]
+        "--remat", "auto", "--num_devices", "1"])["soft_tissue"]
     secs = time.perf_counter() - t0
     launches = {k: f.launches for k, f in counters.items()}
     # phase 7's launches a step (7 steps + 2 validation calls of 6
@@ -2692,6 +2711,292 @@ def run_calculate_phase(dev, tmp: Path):
         f"LPIPS {lpips_ms:.3f} ms")
 
 
+# ------------------------------------------------------------ phases 10
+# Phase 10t: the data-parallel step against one rank, tolerances set before
+# any run. Two ranks of 4 rows and one rank of 8 take TRAIN_DP_STEPS steps
+# from the same init on the same global batches (bf16 compute, fp32
+# parameters, remat off):
+#  - the two ranks' parameters after each step: equal (max |d| 0): both
+#    apply the same all-reduced gradients to the same state;
+#  - the first step's losses (the same parameters on both sides): each rank
+#    computes the global batch's loss on the gathered inputs, which differ
+#    from one rank's only where a conv of 4 rows and one of 8 round
+#    differently in bf16: rtol DP_LOSS_RTOL. The later steps' are printed:
+#    their parameters differ by the sign flips below (this phase has read a
+#    term 1.4% apart at step 3, against 1.3e-4 at step 1);
+#  - the first step's gradients (the same parameters on both sides) over
+#    the weight tensors (a bias that feeds a norm has rounding noise for its
+#    gradient): rel-L2 <= DP_GRAD_REL; a gradient summed over the ranks
+#    where it should be averaged reads 1.0;
+#  - the parameter update over the weight tensors: rel-L2 <= DP_UPDATE_REL.
+#    Adam's first steps are ~lr * sign(g): a gradient near zero whose sign
+#    differs between the runs moves its update by 2 lr, so 1% of such
+#    elements read ~0.2. The gradient bound is the sharper test.
+# Phase 10s: two replicas on one card, phase 4's patient and generators,
+# chain trunk, chunk N in parts of N/2, cuDNN's autotuner off as in phase 4:
+#  - bf16: >= DP_SERVE_SHARE of voxels within 1 stored unit of the
+#    single-device engine called on the same parts (chunk N/2). Not of
+#    phase 4's chunk-N series: this phase reads 84.4% there, and the same
+#    84.4% for the single-device engine alone between chunk N and N/2 (it
+#    prints both), as bf16 roundings of another call size grow through the
+#    seeded generators;
+#  - fp32: >= DP_SERVE_SHARE within 1 stored unit of the single-device
+#    engine at chunk N (read: 100%, max |d| 1).
+TRAIN_DP_STEPS = 3
+DP_LOSS_RTOL = 1e-2
+DP_GRAD_REL = 5e-2
+DP_UPDATE_REL = 0.25
+DP_SERVE_SHARE = 0.9999
+
+
+def rel_l2(got: dict, ref: dict) -> float:
+    """Relative L2 error over the weight tensors of NETS-keyed arrays."""
+    num = den = 0.0
+    for net in ref:
+        for name, r in ref[net].items():
+            if name.endswith(".weight"):
+                num += float(np.sum((got[net][name] - r) ** 2.0))
+                den += float(np.sum(np.asarray(r, np.float64) ** 2))
+    return (num / den) ** 0.5
+
+
+def dp_batches(data: Path) -> list:
+    """TRAIN_DP_STEPS global batches of TRAIN_N from phase 7's tree."""
+    from ducosy_tpu_torch.config import SOFT_TISSUE
+    from ducosy_tpu_torch.data.dataset import SlicePairDataset
+    from ducosy_tpu_torch.data.pairing import list_patient_dirs
+
+    ds = SlicePairDataset(list_patient_dirs(str(data), "Smoke"), SOFT_TISSUE,
+                          img_size=SIZE)
+    out = []
+    for i in range(TRAIN_DP_STEPS):
+        items = [ds[(i * TRAIN_N + j) % len(ds)] for j in range(TRAIN_N)]
+        out.append({k: np.stack([it[k] for it in items]) for k in items[0]})
+    return out
+
+
+def free_card(what: str) -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"{what}: card memory free {free / 2**30:.2f} of "
+        f"{total / 2**30:.2f} GiB")
+
+
+def run_dp_training_phase(devices, backend: str, data: Path, label: str):
+    """Phase 10t (10n: across cards): ``len(devices)`` ranks of the
+    data-parallel step against one rank at the global batch, from the same
+    init and batches."""
+    import torch
+
+    from ducosy_tpu_torch.config import ModelConfig, SOFT_TISSUE, \
+        TrainConfig, replace
+    from ducosy_tpu_torch.parallel.launch import spawn
+    from ducosy_tpu_torch.train.loop import run_steps
+    from ducosy_tpu_torch.train.state import init_state_dicts
+
+    cfg = replace(TrainConfig(), img_size=SIZE, batch_size=TRAIN_N)
+    model = ModelConfig(num_residual_blocks=BLOCKS)
+    init = init_state_dicts(SEED + 30, SOFT_TISSUE, model)
+    batches = dp_batches(data)
+    kw = dict(trunk="tail", remat=False)
+    free_card(f"{label} before spawning {len(devices)} ranks")
+    t0 = time.perf_counter()
+    ranks = spawn(run_steps, (init, batches, cfg, SOFT_TISSUE, model),
+                  devices, kwargs=kw, backend=backend, timeout=600)
+    secs = time.perf_counter() - t0
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False   # as in the ranks
+    try:
+        one = run_steps(devices[0], init, batches, cfg, SOFT_TISSUE, model,
+                        **kw)
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    free_card(f"{label} after the one-rank run")
+    per_step = {k: 6 * BLOCKS for k in ("instance_norm", "instance_norm_bwd",
+                                        "block_tail", "block_tail_bwd")}
+    for i, r in enumerate(ranks):
+        log(f"{label} rank {i} on {devices[i]}: launches a step "
+            f"{r['launches']}; seconds a step "
+            f"{[round(v, 4) for v in r['seconds']]}")
+        if any(l != per_step for l in r["launches"]):
+            fail(f"{label} rank {i}: launches {r['launches']}, expected "
+                 f"{per_step} a step")
+    spread = [max(r["spread"][i] for r in ranks)
+              for i in range(TRAIN_DP_STEPS)]
+    log(f"{label}: max |d| between the ranks' parameters after each step "
+        f"{spread}")
+    if any(spread):
+        fail(f"{label}: the ranks' parameters differ: {spread}")
+    for i in range(TRAIN_DP_STEPS):
+        got, ref = ranks[0]["metrics"][i], one["metrics"][i]
+        log(f"{label} step {i + 1}: loss_G {len(devices)} ranks "
+            f"{got['loss_G']:.6f}, 1 rank {ref['loss_G']:.6f}; loss_D "
+            f"{got['loss_D']:.6f}, {ref['loss_D']:.6f}; largest relative "
+            f"difference of a term "
+            f"{max(abs(got[k] / v - 1) for k, v in ref.items()):.2e}")
+        if not all(np.isfinite(v) for v in got.values()):
+            fail(f"{label} step {i + 1}: non-finite losses {got}")
+    got, ref = ranks[0]["metrics"][0], one["metrics"][0]
+    for k, v in ref.items():
+        if not abs(got[k] - v) <= DP_LOSS_RTOL * abs(v):
+            fail(f"{label} step 1: {k} {got[k]} against one rank's {v} "
+                 f"(rtol {DP_LOSS_RTOL})")
+    grad = rel_l2(ranks[0]["grads"], one["grads"])
+    delta = lambda run: {n: {k: v - init[n][k] for k, v in run[n].items()}
+                         for n in run}
+    update = rel_l2(delta(ranks[0]["params"]), delta(one["params"]))
+    log(f"{label}: rel-L2 over the weights, {len(devices)} ranks against 1:"
+        f" first step's gradient {grad:.3e} (tolerance {DP_GRAD_REL}), the "
+        f"parameter update of {TRAIN_DP_STEPS} steps {update:.3e} "
+        f"(tolerance {DP_UPDATE_REL})")
+    if not grad <= DP_GRAD_REL or not update <= DP_UPDATE_REL:
+        fail(f"{label}: gradient rel-L2 {grad}, update rel-L2 {update}")
+    warm = lambda r: statistics.median(r["seconds"][1:])
+    log(f"{label}: seconds a step (median of steps 2-{TRAIN_DP_STEPS}), "
+        f"batch {TRAIN_N} x {SIZE}^2 bf16 SOFT_TISSUE: "
+        + ", ".join(f"rank {i} {warm(r):.4f}" for i, r in enumerate(ranks))
+        + f"; one rank of {TRAIN_N} {warm(one):.4f}; spawn + "
+        f"{TRAIN_DP_STEPS} steps {secs:.1f} s ({backend}; {gpu_line()})")
+
+
+def run_dp_serving_phase(k1, k2, devices, st, lung, ref, label: str):
+    """Phase 10s (10n: across cards): the engine with one replica per
+    ``devices`` entry on phase 4's patient, against the single-device
+    engine (``ref``: phase 4's series)."""
+    import torch
+
+    from ducosy_tpu_torch.infer.engine import DualGeneratorEngine
+    from ducosy_tpu_torch.parallel.mesh import data_mesh
+
+    vol = chest_phantom(SLICES, SIZE, SEED)
+    parts = len(devices)
+
+    def engine(dtype, **kw):
+        return DualGeneratorEngine(st, lung, img_size=SIZE,
+                                   compute_dtype=dtype, trunk="chain", **kw)
+
+    def run(eng, chunk=N):
+        t0 = time.perf_counter()
+        out = eng.run_patient(vol, 1.0, -1024.0, chunk=chunk)
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+        return out, time.perf_counter() - t0
+
+    def held(what, got, want):
+        share, dmax = within_one(got, want)
+        log(f"{label}: {what}: |d| <= 1 on {share:.6f} of voxels, max |d| "
+            f"{dmax} stored units")
+        return share
+
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False    # as in phase 4
+    try:
+        eng = engine(torch.bfloat16, mesh=data_mesh(devices=devices))
+        run(eng)                              # warm-up
+        k1.residual_chain.launches = k2.instance_norm.launches = 0
+        out, _ = run(eng)                     # the path, counted
+        got = (k1.residual_chain.launches, k2.instance_norm.launches)
+        n_chunks = -(-SLICES // N)
+        want = (2 * 3 * n_chunks * parts,
+                2 * K2_PER_GEN[None] * n_chunks * parts)
+        log(f"{label}: launches K1 {got[0]} K2 {got[1]} (expected "
+            f"{want[0]}, {want[1]})")
+        if got != want:
+            fail(f"{label}: launches {got} != {want}")
+        if out.dtype != np.int16 or out.shape != vol.shape:
+            fail(f"{label}: output {out.dtype} {out.shape}")
+        rates = [SLICES / run(eng)[1] for _ in range(3)]
+        del eng
+        single = engine(torch.bfloat16, device=devices[0])
+        same_calls = run(single, N // parts)[0]
+        del single
+        share = held(f"bf16, {parts} replicas against one device called on "
+                     f"the same parts of {N // parts}", out, same_calls)
+        held(f"bf16, {parts} replicas against phase 4's series (calls of "
+             f"{N})", out, ref)
+        held(f"bf16, one device, calls of {N // parts} against phase 4's of "
+             f"{N} (another call size alone)", same_calls, ref)
+        out32 = run(engine(torch.float32, mesh=data_mesh(devices=devices)))[0]
+        ref32 = run(engine(torch.float32, device=devices[0]))[0]
+        share32 = held(f"fp32, {parts} replicas against one device (calls of"
+                       f" {N})", out32, ref32)
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    if min(share, share32) < DP_SERVE_SHARE:
+        fail(f"{label}: {share} (bf16), {share32} (fp32) of voxels within 1 "
+             f"stored unit < {DP_SERVE_SHARE}")
+    log(f"{label}: bf16 slices/s median {statistics.median(rates):.2f} "
+        f"rounds {[round(v, 2) for v in rates]} ({SLICES} x {SIZE}^2, chunk "
+        f"{N} in {parts} parts of {N // parts}, chain trunk; {gpu_line()})")
+
+
+def run_multi_card_phase(k1, k2, st, lung, ref, data: Path):
+    """Phase 10n: 10t and 10s on cuda:0 and cuda:1 over NCCL, and both CLIs
+    with --num_devices 2. Needs two cards."""
+    import torch
+
+    from ducosy_tpu_torch.cli import generate, train
+    from ducosy_tpu_torch.infer.engine import DualGeneratorEngine
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        log(f"phase 10n not run: {count} card visible; the NCCL path across "
+            "cards needs 2 or more (not counted as passed)")
+        return
+    devices = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    run_dp_training_phase(devices, "nccl", data, "10n training")
+    run_dp_serving_phase(k1, k2, devices, st, lung, ref, "10n serving")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = train.main([
+            "--data_root", str(data), "--dataset_names", "Smoke",
+            "--training_dir", str(Path(tmp, "run")), "--img_size", str(SIZE),
+            "--batch_size", str(TRAIN_N), "--num_residual_blocks",
+            str(BLOCKS), "--epochs", "1", "--max_steps_per_epoch", "2",
+            "--resume", "", "--num_workers", "8", "--remat", "off",
+            "--num_devices", "2"])["soft_tissue"]
+        losses = {k: v for k, v in out.items() if k.startswith("loss")}
+        if len(out["step_seconds"]) != 2 or not all(
+                np.isfinite(v) for v in losses.values()):
+            fail(f"10n training CLI: {out['step_seconds']} {losses}")
+        log(f"10n training CLI --num_devices 2: steps "
+            f"{[round(v, 3) for v in out['step_seconds']]} s, losses "
+            f"{losses}")
+        vol = chest_phantom(SLICES, SIZE, SEED + 1)
+        write_series(Path(tmp, "input", "Smoke", "patient00", "POST VUE"),
+                     vol, "POST VUE")
+        paths = {}
+        for name, sd in (("st", st), ("lung", lung)):
+            paths[name] = str(Path(tmp, f"{name}.pth"))
+            torch.save({k: torch.from_numpy(v) for k, v in sd.items()},
+                       paths[name])
+        benchmark = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.benchmark = False    # as in phase 10s
+        try:
+            generate.main([
+                "--input_dir_root", str(Path(tmp, "input")),
+                "--output_dir_root", str(Path(tmp, "output")),
+                "--dataset_names", "Smoke", "--img_size", str(SIZE),
+                "--slice_batch", str(N), "--soft_tissue_model", paths["st"],
+                "--lung_model", paths["lung"], "--num_devices", "2"])
+            want = DualGeneratorEngine(st, lung, img_size=SIZE,
+                                       device=devices[0]).run_patient(
+                vol, 1.0, -1024.0, chunk=N // 2)
+        finally:
+            torch.backends.cudnn.benchmark = benchmark
+        got = read_series(Path(tmp, "output", "Smoke", "patient00"),
+                          "DuCoSyGAN sCECT v2", "10n CLI")
+        share, dmax = within_one(got, want)
+        log(f"10n generate CLI --num_devices 2 against one card called on "
+            f"the same parts: |d| <= 1 on {share:.6f}, max |d| {dmax}")
+        if share < DP_SERVE_SHARE:
+            fail(f"10n generate CLI: {share} within 1 stored unit")
+
+
 def kernel_records(records) -> list:
     """One record per kernel for the result line: launches on its path,
     max |d|, measured times, and the bound computed from the shapes."""
@@ -2881,7 +3186,7 @@ def main() -> None:
         phase(f"3r {shape}", check_conv_in, k7, dev, {}, shape=shape)
     phase("3c", check_conv_loop, k7, dev, records)
     phase("3p", run_proto_phase, proto, k7, dev, records)
-    phase("4", run_engine_phase, k1, k2, dev, st, lung, records)
+    engine_out = phase("4", run_engine_phase, k1, k2, dev, st, lung, records)
     phase("4q", run_quant_engine_phase, k1, k2, k4, dev, st, lung, records)
     phase("4m", run_mega_engine_phase, k1, k2, k7, dev, st, lung, records)
     fast_series = phase("5", run_cli_phase, k1, k2, st, lung)
@@ -2893,6 +3198,13 @@ def main() -> None:
         phase("7", run_training_phase, k2, k4, Path(run_dir), records)
         phase("8", run_masked_cli_phase, k1, k2, dev, Path(run_dir))
         phase("7r", run_resume_phase, k2, k4, dev, Path(run_dir), records)
+        data = Path(run_dir, "data")
+        phase("10t", run_dp_training_phase, [dev, dev], "gloo", data,
+              "10t training")
+        phase("10s", run_dp_serving_phase, k1, k2, [dev, dev], st, lung,
+              engine_out, "10s serving")
+        phase("10n", run_multi_card_phase, k1, k2, st, lung, engine_out,
+              data)
     with tempfile.TemporaryDirectory() as gen_dir:
         gen = {}
         phase("9w", run_working_phase, k1, k2, st, lung, Path(gen_dir),

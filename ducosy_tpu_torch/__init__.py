@@ -20,7 +20,8 @@ find):
                    checkpoint conversion
   losses/          the CycleGAN loss suite
   data/            patient pairing, the slice dataset, the host loader
-  train/           state, step, loop and checkpoints on one card
+  train/           state, step, loop and checkpoints
+  parallel/        the data-parallel mesh, its collectives, rank spawning
   infer/           dual-generator engine and volume postprocess
   utils/           validation image grids and the metrics logger
   cli/             the serving (generate.py) and training (train.py) CLIs

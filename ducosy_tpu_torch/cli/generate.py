@@ -1,4 +1,4 @@
-"""Inference + synthesis CLI on one CUDA card (cli/generate.py:30-311).
+"""Inference + synthesis CLI (cli/generate.py:30-311).
 
     python -m ducosy_tpu_torch.cli.generate --input_dir_root DIR \
         --output_dir_root DIR --dataset_names NAME \
@@ -23,7 +23,10 @@ serves the quantized modes. Mask-conditioned checkpoints (what
 ``cli.train`` writes for SOFT_TISSUE and LUNG) are served with their masks
 generated on the host (on the fast path the next patient's prefetched
 while this one computes); ``--soft_squeeze`` gives them the training-time
-input squeeze. ``--num_devices`` > 1 is not ported yet and raises.
+input squeeze. ``--num_devices N`` > 1 serves each chunk in N parts on
+the first N cards (N CPU replicas with ``--device cpu``), as the JAX CLI's
+``data_mesh(N)``; more cards than are visible raises, and
+``--slice_batch`` must divide by N.
 """
 from __future__ import annotations
 
@@ -64,7 +67,7 @@ def parse_args(argv=None):
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--num_devices", type=int, default=None,
-                   help="multi-card serving (not ported yet)")
+                   help="serve each chunk in parts on this many cards")
     p.add_argument("--trunk_int8", action="store_true",
                    help="quantized serving: the trunk's conv2s int8 (same "
                         "as --quant trunk)")
@@ -84,13 +87,6 @@ def parse_args(argv=None):
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch path)")
     return p.parse_args(argv)
-
-
-def _refuse_unported(args) -> None:
-    if (args.num_devices or 1) > 1:
-        raise NotImplementedError(
-            "--num_devices is not ported to the PyTorch CLI yet (ROADMAP.md "
-            "Queue 1)")
 
 
 def _load_generator(path: str):
@@ -114,14 +110,20 @@ def _load_generator(path: str):
 
 def load_engine(args):
     from ducosy_tpu_torch.infer.engine import DualGeneratorEngine
+    from ducosy_tpu_torch.parallel.mesh import data_mesh
 
     dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" \
         else torch.float32
+    mesh = None
+    if args.num_devices and args.num_devices > 1:
+        mesh = data_mesh(args.num_devices) \
+            if torch.device(args.device).type == "cuda" \
+            else data_mesh(devices=[args.device] * args.num_devices)
     return DualGeneratorEngine(_load_generator(args.soft_tissue_model),
                                _load_generator(args.lung_model),
                                img_size=args.img_size, compute_dtype=dtype,
-                               device=args.device, quant=args.quant,
-                               trunk_int8=args.trunk_int8,
+                               device=args.device, mesh=mesh,
+                               quant=args.quant, trunk_int8=args.trunk_int8,
                                soft_squeeze=args.soft_squeeze)
 
 
@@ -302,7 +304,6 @@ def run_fast_pipeline(engine, args, patients, output_dir) -> int:
 
 def main(argv=None):
     args = parse_args(argv)
-    _refuse_unported(args)
     if args.synthesis_mode == "additive" and not args.write_working:
         print("note: --synthesis_mode additive takes effect with "
               "--write_working only (as in the JAX CLI); serving the fast "

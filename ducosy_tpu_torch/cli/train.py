@@ -1,4 +1,4 @@
-"""Training CLI on one CUDA card (cli/train.py; reference train.py:16-49).
+"""Training CLI (cli/train.py; reference train.py:16-49).
 
     python -m ducosy_tpu_torch.cli.train --data_root DIR --dataset_names NAME
 
@@ -7,8 +7,15 @@ window and mask settings. Same flags as the JAX CLI, plus ``--device``
 (default ``cuda``; the run raises if no card is visible, ``--device cpu``
 runs the plain PyTorch path), ``--trunk`` (``tail``, the K2-K5 kernels, or
 ``plain``), ``--remat``, ``--max_steps_per_epoch`` and the widths
-``--base_channels`` / ``--disc_base_channels``. ``--num_devices``
-other than 1 raises: multi-card training is not ported yet.
+``--base_channels`` / ``--disc_base_channels``.
+
+``--num_devices N`` trains data-parallel on the first N cards, one rank a
+card over NCCL (default: every visible card, as the JAX CLI's mesh; 1 with
+``--device cpu``, where N > 1 runs N gloo ranks on the CPU); more cards
+than are visible raises. ``--batch_size`` is the global batch and must
+divide by N. Under torchrun (``WORLD_SIZE`` > 1 in the environment) each
+process is one rank on ``cuda:LOCAL_RANK``: the multi-host form. Rank 0
+writes the run's files; ``main`` returns its summary.
 """
 from __future__ import annotations
 
@@ -41,7 +48,8 @@ def parse_args(argv=None):
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--num_devices", type=int, default=None,
-                   help="multi-card training (not ported yet)")
+                   help="cards to train on, one rank a card (default: every "
+                        "visible card; 1 with --device cpu)")
     p.add_argument("--max_epochs", type=int, default=None,
                    help="cap epochs this invocation (resume continues)")
     p.add_argument("--num_residual_blocks", type=int, default=9)
@@ -58,18 +66,26 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None):
-    """Run the CLI; returns {target: summary} of the trained ranges."""
-    args = parse_args(argv)
-    if args.num_devices not in (None, 1):
-        raise NotImplementedError(
-            f"--num_devices {args.num_devices}: multi-card training is not "
-            "ported yet (one card)")
+def _devices(args, device: torch.device) -> tuple:
+    """The ranks' devices: ``--num_devices`` cards (a card named with its
+    index, alone), or N CPU ranks."""
+    from ducosy_tpu_torch.parallel.mesh import data_mesh
+
+    n = args.num_devices
+    if device.type == "cpu":
+        return data_mesh(devices=[device] * (n or 1))
+    if device.index is not None and n in (None, 1):
+        return (device,)
+    return data_mesh(n)
+
+
+def _train(device: torch.device, args) -> dict:
+    """Train the selected ranges on ``device``: the whole run, or one rank
+    of it; returns {target: summary}."""
     from ducosy_tpu_torch.config import ModelConfig, TrainConfig, replace
-    from ducosy_tpu_torch.device import require_cuda
+    from ducosy_tpu_torch.parallel.mesh import rank
     from ducosy_tpu_torch.train.loop import train_cycle_gan
 
-    device = require_cuda(args.device)
     if device.type == "cuda":
         torch.backends.cudnn.benchmark = True   # fixed shapes every step
     cfg = replace(
@@ -89,16 +105,38 @@ def main(argv=None):
     os.makedirs(cfg.training_dir, exist_ok=True)
     targets = ["soft_tissue", "lung"] if args.target_model == "all" \
         else [args.target_model]
+    say = print if rank() == 0 else (lambda *a, **k: None)
     out = {}
     for target in targets:
-        print(f"=== training {target} CycleGAN ===")
+        say(f"=== training {target} CycleGAN ===")
         out[target] = train_cycle_gan(
             cfg, target, model_cfg, device=device, trunk=args.trunk,
             max_epochs=args.max_epochs,
             max_steps_per_epoch=args.max_steps_per_epoch)
-        print(f"=== {target} done: val_loss={out[target]['val_loss']} "
-              f"remat={out[target]['remat']} ===")
+        say(f"=== {target} done: val_loss={out[target]['val_loss']} "
+            f"remat={out[target]['remat']} ===")
     return out
+
+
+def main(argv=None):
+    """Run the CLI; returns {target: summary} of the trained ranges (rank
+    0's in a data-parallel run)."""
+    args = parse_args(argv)
+    from ducosy_tpu_torch.device import require_cuda
+    from ducosy_tpu_torch.parallel import launch
+    from ducosy_tpu_torch.parallel.mesh import init_distributed
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:   # one rank of a torchrun launch
+        if args.num_devices not in (None, world):
+            raise ValueError(f"--num_devices {args.num_devices} under a "
+                             f"torchrun launch of {world} ranks")
+        device = init_distributed(require_cuda(args.device).type)
+        return _train(device, args)
+    devices = _devices(args, require_cuda(args.device))
+    if len(devices) == 1:
+        return _train(devices[0], args)
+    return launch.spawn(_train, (args,), devices)[0]
 
 
 if __name__ == "__main__":

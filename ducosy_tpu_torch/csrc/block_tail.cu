@@ -155,9 +155,11 @@ static int launch_resident(const bf16* h, const bf16* x, const float* w1,
                            cudaStream_t s) {
   constexpr int smem = K4_SMEM<BN>;
   auto kernel = block_tail_resident<BN, PARTS>;
-  static const cudaError_t raised = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (raised != cudaSuccess) return (int)raised;
+  static DeviceFlags raised;
+  DUCOSY_TRY(once_per_device(raised, [&] {
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  }));
   const int tiles = (hh * ww + TILE_M - 1) / TILE_M;
   void* args[] = {&h,     &x,    &w1,  &w2,  &wsa, &out, &pmean, &pm2,
                   &pmax,  &gmean, &grstd, &gmax, &map, &bar, &n,    &hh,

@@ -972,9 +972,11 @@ static int launch_bwd_resident(const bf16* h, const bf16* g, const float* w1,
                                int groups, cudaStream_t s) {
   constexpr int smem = K5Smem<BN>::BYTES;
   auto kernel = block_tail_bwd_resident<BN, PARTS>;
-  static const cudaError_t raised = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (raised != cudaSuccess) return (int)raised;
+  static DeviceFlags raised;
+  DUCOSY_TRY(once_per_device(raised, [&] {
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  }));
   const int tiles = (hh * ww + TILE_M - 1) / TILE_M;
   void* args[] = {&h,    &g,     &w1,   &w2,  &wsa, &dh, &dx,  &dw1,
                   &dw2,  &pdwsa, &part, &stats, &maps, &bar, &n, &hh,

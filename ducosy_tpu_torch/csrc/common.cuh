@@ -14,6 +14,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace ducosy {
 
 using bf16 = __nv_bfloat16;
@@ -452,7 +454,32 @@ __global__ void norm_apply_int8(const TIn* __restrict__ x,
   }
 }
 
+// A kernel's attributes (its dynamic shared-memory opt-in) belong to one
+// device's context, so a launch function sets them once per device, not
+// once per process: a process that launches on two cards needs them on
+// both. `done` is a static of the launch function, which has internal
+// linkage (so each library keeps its own), one slot per device, holding
+// the first call's status + 1. Setting an attribute twice is harmless, so
+// two threads that race on one slot cost one extra call.
+constexpr int MAX_DEVICES = 64;
+using DeviceFlags = std::atomic<int>[MAX_DEVICES];
+
+template <typename Set>
+static int once_per_device(DeviceFlags& done, Set set) {
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  int status = done[dev].load(std::memory_order_acquire);
+  if (status == 0) {
+    status = (int)set() + 1;
+    done[dev].store(status, std::memory_order_release);
+  }
+  return status - 1;
+}
+
 }  // namespace ducosy
+
 
 #define DUCOSY_CHECK_LAUNCH()                     \
   do {                                            \

@@ -418,7 +418,8 @@ conv3x3_f32(const float* __restrict__ xp, const float* __restrict__ wt,
 }
 
 // Launch of one conv3x3_wgmma instantiation. The shared-memory limit of the
-// kernel is raised once; its error, like a refused launch's, is returned.
+// kernel is raised once a device; its error, like a refused launch's, is
+// returned.
 // static: each library that includes this header has its own copy of the
 // kernel and must raise its own limit, and the once-flag of a function with
 // external linkage would be one symbol for all libraries of the process.
@@ -427,10 +428,12 @@ static int launch_wgmma(const TIn* xp, const TIn* wt, float* acc, float* pmean,
                  float* pm2, float* pmax, int n, int h, int w, int c,
                  int tiles, cudaStream_t s) {
   constexpr int smem = ConvGeom<TIn, ROWB, BN>::SMEM;
-  static const cudaError_t raised = cudaFuncSetAttribute(
-      conv3x3_wgmma<TIn, ROWB, BN, PARTS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (raised != cudaSuccess) return (int)raised;
+  static DeviceFlags raised;
+  DUCOSY_TRY(once_per_device(raised, [&] {
+    return cudaFuncSetAttribute(conv3x3_wgmma<TIn, ROWB, BN, PARTS>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem);
+  }));
   conv3x3_wgmma<TIn, ROWB, BN, PARTS>
       <<<dim3(c / BN, tiles, n), CONV_THREADS, smem, s>>>(
           xp, wt, acc, pmean, pm2, pmax, h, w, c);

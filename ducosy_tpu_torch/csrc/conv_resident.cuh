@@ -222,9 +222,11 @@ static int launch_in_resident(const TIn* xp, const TIn* wt, TOut* out,
                               cudaStream_t s) {
   constexpr int smem = IN_SMEM<TIn, ROWB, BN>;
   auto kernel = conv3x3_in_resident<TIn, TOut, ROWB, BN, PARTS>;
-  static const cudaError_t raised = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (raised != cudaSuccess) return (int)raised;
+  static DeviceFlags raised;
+  DUCOSY_TRY(once_per_device(raised, [&] {
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  }));
   void* args[] = {&xp, &wt, &out, &pmean, &pm2, &gmean, &grstd, &bar,
                   &n,  &h,  &w,   &c,     &pad, &relu,  &eps,   &int8_k};
   return launch_cooperative(kernel, dim3(c / BN, tiles, groups), smem, args, s);
@@ -241,9 +243,11 @@ static int launch_tail_resident(const TIn* tp, const TIn* wt, const bf16* x,
                                 int tiles, int groups, cudaStream_t s) {
   constexpr int smem = TAIL_SMEM<TIn, ROWB, BN>;
   auto kernel = conv_tail_resident<TIn, ROWB, BN, PARTS>;
-  static const cudaError_t raised = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (raised != cudaSuccess) return (int)raised;
+  static DeviceFlags raised;
+  DUCOSY_TRY(once_per_device(raised, [&] {
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  }));
   void* args[] = {&tp,    &wt,    &x,    &w1,  &w2,  &wsa, &out, &pmean,
                   &pm2,   &pmax,  &gmean, &grstd, &gmax, &map, &bar, &n,
                   &h,     &w,     &r,    &pad, &x_pad, &eps};

@@ -328,17 +328,18 @@ bwd_apply(const T* __restrict__ x, const T* __restrict__ g,
 }
 
 // Lets the ring kernels of io type T take RING_BYTES of dynamic shared
-// memory; once a type (a static in a function of internal linkage).
+// memory; once a type and device (a static in a function of internal
+// linkage).
 template <typename T>
 int allow_ring() {
-  static const cudaError_t raised = [] {
+  static DeviceFlags raised;
+  return once_per_device(raised, [] {
     const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
     const cudaError_t e = cudaFuncSetAttribute(bwd_sums<T>, attr, RING_BYTES);
     return e != cudaSuccess
                ? e
                : cudaFuncSetAttribute(bwd_apply<T>, attr, RING_BYTES);
-  }();
-  return (int)raised;
+  });
 }
 
 // Parts of a call (the by-parts probe skips parts; production runs all):

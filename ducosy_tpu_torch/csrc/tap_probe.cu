@@ -249,18 +249,20 @@ tap_matmul_wgmma(const T* __restrict__ a, const T* __restrict__ b,
   }
 }
 
-// One instantiation's launch. The shared-memory limit is raised once; its
-// error, like a refused launch's, is returned. static: the once-flag of a
-// function with external linkage would be one symbol for every library of
-// the process.
+// One instantiation's launch. The shared-memory limit is raised once a
+// device; its error, like a refused launch's, is returned. static: the
+// once-flag of a function with external linkage would be one symbol for
+// every library of the process.
 template <typename T, int PARTS>
 static int launch_tap(const void* a, const void* b, void* out, int m, int k,
                       int taps, cudaStream_t s) {
   using G = TapGeom<T>;
-  static const cudaError_t raised = cudaFuncSetAttribute(
-      tap_matmul_wgmma<T, PARTS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, TAP_SMEM_MAX);
-  if (raised != cudaSuccess) return (int)raised;
+  static DeviceFlags raised;
+  DUCOSY_TRY(once_per_device(raised, [] {
+    return cudaFuncSetAttribute(tap_matmul_wgmma<T, PARTS>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                TAP_SMEM_MAX);
+  }));
   const int smem = (k / G::KC) * (G::A_CHUNK + G::B_CHUNK) + TAP_ALIGN;
   tap_matmul_wgmma<T, PARTS><<<m / TAP_M, CONV_THREADS, smem, s>>>(
       static_cast<const T*>(a), static_cast<const T*>(b),

@@ -1,7 +1,7 @@
 """Dual-generator serving engine (ducosy_tpu/infer/engine.py:41-560).
 
 Runs the soft-tissue and lung generators over a patient's stored-pixel
-volume on one CUDA card, step for step like the JAX engine's
+volume on a CUDA card, step for step like the JAX engine's
 ``run_patient``:
   1. pad z to a multiple of ``chunk`` by repeating the last slice;
   2. per chunk: stored -> HU -> each window's [-1, 1] normalization (the
@@ -14,6 +14,15 @@ volume on one CUDA card, step for step like the JAX engine's
   5. gaussian3d + unsharp, restore stored values >= 750, int16.
 The JAX engine fuses the chunks into one jitted ``lax.map``; here a Python
 loop enqueues each chunk's kernels on the current CUDA stream.
+
+``mesh=`` (a ``parallel.data_mesh``: cards, or one card or the CPU listed
+more than once) serves data-parallel, as the JAX engine over its ``data``
+axis: one replica of each generator per mesh device (int8 weights
+quantized per replica), each chunk split into ``len(mesh)`` equal parts,
+every part enqueued on its device before any is gathered onto the first
+device, where the composite and the z-coupled postprocess run.
+``generate_batch`` runs on the first device, as the JAX engine's does not
+shard either. A mesh with an ``sp`` axis (nested device lists) raises.
 
 Mask-conditioned checkpoints (stem input channels > 1: image + the range's
 anatomical masks, what the training CLI writes for SOFT_TISSUE and LUNG)
@@ -57,6 +66,7 @@ from ducosy_tpu_torch.models.generator import Generator
 from ducosy_tpu_torch.ops import hu
 from ducosy_tpu_torch.ops.quant import INT8_NORM_SCALE, check_quant
 from ducosy_tpu_torch.ops.resize import resize_hw
+from ducosy_tpu_torch.parallel.mesh import data_mesh
 
 
 class DualGeneratorEngine:
@@ -71,25 +81,35 @@ class DualGeneratorEngine:
                  st_range: RangeConfig = SOFT_TISSUE,
                  lung_range: RangeConfig = LUNG, img_size: int = 512,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 device: str | torch.device = "cuda", trunk: str = "chain",
-                 forward: str = "module", quant: str | None = None,
-                 trunk_int8: bool = False, soft_squeeze: bool = False,
-                 mesh=None):
-        self.device = require_cuda(device)
+                 device: str | torch.device | None = None,
+                 trunk: str = "chain", forward: str = "module",
+                 quant: str | None = None, trunk_int8: bool = False,
+                 soft_squeeze: bool = False, mesh=None):
+        # device: default "cuda", or the mesh's first device, which a
+        # device named beside a mesh must agree with
+        if mesh is None:
+            self.mesh = (require_cuda(device or "cuda"),)
+        else:
+            self.mesh = tuple(require_cuda(d) for d in data_mesh(devices=mesh))
+            named = None if device is None else torch.device(device)
+            first = self.mesh[0]
+            if named is not None and (named.type != first.type or (
+                    named.index is not None and first.index is not None
+                    and named.index != first.index)):
+                raise ValueError(f"device={named} disagrees with the mesh's "
+                                 f"first device {first}")
+        self.device = self.mesh[0]
         if forward != "module":
             raise NotImplementedError(
                 f"forward={forward!r}: the space-to-depth packed forward is "
-                "not ported (ROADMAP.md Queue 1, item 6)")
+                "not ported (ROADMAP.md Queue 1, the packed and fused "
+                "forwards)")
         if quant is None and trunk_int8:
             quant = "trunk"
         self.quant = check_quant(quant)
         if quant:
             # as the JAX engine names it; DUCOSY_INT8_SCALE moves it
             self.quant_calibration = f"static-{INT8_NORM_SCALE:g}sigma"
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device serving is not ported (ROADMAP.md Queue 1, "
-                "item 9)")
         if compute_dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"compute_dtype {compute_dtype}: bfloat16 or "
                              "float32")
@@ -115,14 +135,16 @@ class DualGeneratorEngine:
         self.st_range, self.lung_range = st_range, lung_range
         self.img_size = img_size
 
-        def build(sd):
+        def build(sd, device):
             gen = Generator.from_state_dict(sd, trunk=trunk, quant=quant)
-            gen = gen.to(device=self.device, dtype=compute_dtype)
+            gen = gen.to(device=device, dtype=compute_dtype)
             gen = gen.to(memory_format=torch.channels_last)
             return gen.eval().requires_grad_(False)
 
-        self.st_generator = build(st_sd)
-        self.lung_generator = build(lung_sd)
+        # (soft-tissue, lung) generators per mesh device
+        self.replicas = [(build(st_sd, d), build(lung_sd, d))
+                         for d in self.mesh]
+        self.st_generator, self.lung_generator = self.replicas[0]
 
     @classmethod
     def from_torch_checkpoints(cls, st_path: str, lung_path: str, **kw):
@@ -139,10 +161,13 @@ class DualGeneratorEngine:
         return hu.normalize_window(hu_img, rng.hu_min, rng.hu_max)
 
     def _forward_impl(self, stored: torch.Tensor, slope: float,
-                      intercept: float, out_h: int, out_w: int, masks=None):
-        """(B, H, W) fp32 stored pixels on the device (+ per-model
+                      intercept: float, out_h: int, out_w: int, masks=None,
+                      generators=None):
+        """(B, H, W) fp32 stored pixels on a device (+ per-model
         (B, s, s, M) mask channels at model resolution) -> dict of
-        stored-float outputs and the raw HU, all on the device."""
+        stored-float outputs and the raw HU, all on that device, through
+        ``generators`` (the replica there; default the first)."""
+        st_gen, lung_gen = generators or self.replicas[0]
         hu_img = hu.stored_to_hu(stored, slope, intercept)
         x = torch.stack([self._normalize(hu_img, r)
                          for r in (self.st_range, self.lung_range)])
@@ -156,8 +181,7 @@ class DualGeneratorEngine:
         if self.lung_channels > 1:
             lung_x = torch.cat([lung_x, masks["lung"].to(lung_x.dtype)],
                                dim=-1)
-        y = torch.stack([self.st_generator(st_x)[..., 0],
-                         self.lung_generator(lung_x)[..., 0]])
+        y = torch.stack([st_gen(st_x)[..., 0], lung_gen(lung_x)[..., 0]])
         if y.shape[-2:] != (out_h, out_w):
             y = resize_hw(y, out_h, out_w)
         st_hu = hu.denormalize_to_hu(y[0], self.st_range.hu_min,
@@ -275,6 +299,22 @@ class DualGeneratorEngine:
                 parts.append({k: v.cpu().numpy() for k, v in out.items()})
         return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
 
+    def _forward_parts(self, sl, slope, intercept, h, w, masks):
+        """One chunk through ``_forward_impl``: whole on one device, or in
+        ``len(mesh)`` equal parts, each on its replica, all enqueued before
+        the outputs are gathered onto the first device."""
+        if len(self.mesh) == 1:
+            return self._forward_impl(sl, slope, intercept, h, w, masks)
+        rows = len(sl) // len(self.mesh)
+        outs = []
+        for i, (dev, gens) in enumerate(zip(self.mesh, self.replicas)):
+            part = slice(i * rows, (i + 1) * rows)
+            mk = masks and {k: v[part].to(dev) for k, v in masks.items()}
+            outs.append(self._forward_impl(sl[part].to(dev), slope, intercept,
+                                           h, w, mk, gens))
+        return {k: torch.cat([o[k].to(self.device) for o in outs])
+                for k in outs[0]}
+
     # ------------------------------------------------- full-patient pipeline
     def run_patient(self, stored_volume: np.ndarray, slope: float,
                     intercept: float, **kw) -> np.ndarray:
@@ -293,8 +333,11 @@ class DualGeneratorEngine:
         without waiting for the card, so a caller can overlap host work.
         ``masks`` may be a ``prefetch_masks`` future (or its result) of the
         same unpadded volume; without it a mask-conditioned engine computes
-        the masks here."""
+        the masks here. With a mesh, ``chunk`` must divide by its size."""
         z, h, w = stored_volume.shape
+        if chunk % len(self.mesh):
+            raise ValueError(f"chunk={chunk} not divisible by data-axis size "
+                             f"{len(self.mesh)}")
         pad = (-z) % chunk
         stored = np.concatenate(
             [stored_volume, stored_volume[-1:].repeat(pad, axis=0)]
@@ -309,7 +352,7 @@ class DualGeneratorEngine:
             for lo in range(0, z + pad, chunk):
                 sl = vol[lo:lo + chunk].to(torch.float32)
                 mk = masks and {k: v[lo:lo + chunk] for k, v in masks.items()}
-                out = self._forward_impl(sl, slope, intercept, h, w, mk)
+                out = self._forward_parts(sl, slope, intercept, h, w, mk)
                 merged[lo:lo + chunk] = composite_volume(
                     sl, out["raw_hu"], out["st_stored"], out["lung_stored"],
                     self.st_range, self.lung_range)

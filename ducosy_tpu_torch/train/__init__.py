@@ -1,1 +1,1 @@
-"""One-card CycleGAN training (ducosy_tpu/train)."""
+"""CycleGAN training, on one card or data-parallel (ducosy_tpu/train)."""

@@ -63,9 +63,15 @@ class BestTracker:
         self.best_val = float("inf")
         self.best_epoch = -1
 
-    def update(self, epoch1: int, val_loss: float, g_a2b, g_b2a) -> bool:
+    def update(self, epoch1: int, val_loss: float, g_a2b, g_b2a, *,
+               write: bool = True) -> bool:
+        """Track a new best; ``write`` False keeps the bookkeeping only (the
+        ranks of a data-parallel run other than rank 0)."""
         if val_loss >= self.best_val:
             return False
+        if not write:
+            self.best_val, self.best_epoch = val_loss, epoch1
+            return True
         if self.best_epoch != -1:
             for stem in ("G_A2B", "G_B2A"):
                 old = os.path.join(self.dir,

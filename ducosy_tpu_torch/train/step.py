@@ -12,6 +12,14 @@ losses compare image channels only; discriminators see 1-channel images.
 With ``remat``, each generator forward and the loss terms run under
 ``torch.utils.checkpoint``: only their inputs stay saved, and the backward
 recomputes them (so the forward kernels launch twice per step).
+
+In a process group of more than one rank (``parallel/``), each rank runs
+the networks on its rows of the global batch, the generator loss and both
+discriminator losses take their inputs of the whole batch
+(``gather_batch``), so every rank computes the global batch's loss, and
+each optimizer's gradients are all-reduced as a mean before it steps: the
+step of the global batch on one card, as the JAX step under a sharded
+``jit`` (tests/test_train_step.py:100-130).
 """
 from __future__ import annotations
 
@@ -26,6 +34,8 @@ from ducosy_tpu_torch.losses.suite import (
     generator_loss,
     validation_generator_loss,
 )
+from ducosy_tpu_torch.parallel.mesh import all_reduce_mean, gather_batch, \
+    world_size
 from ducosy_tpu_torch.train.state import CycleGANState
 
 Batch = Dict[str, torch.Tensor]   # "a", "b" NHW1, "masks" NHWM, "weight" (N,)
@@ -69,15 +79,19 @@ def make_train_step(cfg: TrainConfig, loss_cfg: LossConfig = LossConfig(), *,
     networks and optimizers in place and returns 0-d tensors (no sync).
 
     For a wrap-padded final batch (a "weight" vector in the batch) pass the
-    count of real samples as ``n_real``: the losses then reproduce the
-    ragged batch's values and gradients exactly. Each parameter's gradient
-    of this step is left in its ``.grad``.
+    count of real samples as ``n_real`` (of the global batch): the losses
+    then reproduce the ragged batch's values and gradients exactly. Each
+    parameter's gradient of this step (all-reduced) is left in its
+    ``.grad``. The step is built for the process group's size at the time
+    of the call.
 
     All three gradients are taken before any optimizer steps (the D steps
     see the pre-update D weights and the detached fakes either way, so the
     result is the reference's order). ``step.updating`` is True once the
     optimizers have started: an error raised before that left the state
     untouched."""
+    world = world_size()
+    gather = gather_batch if world > 1 else (lambda *xs: xs)
 
     def gen_apply(gen, x):
         if not remat:
@@ -100,8 +114,8 @@ def make_train_step(cfg: TrainConfig, loss_cfg: LossConfig = LossConfig(), *,
         if batched_forwards:
             n = real.shape[0]
             logits = disc(torch.cat([real, fake]))
-            return discriminator_loss(logits[:n], logits[n:], w)
-        return discriminator_loss(disc(real), disc(fake), w)
+            return discriminator_loss(*gather(logits[:n], logits[n:], w))
+        return discriminator_loss(*gather(disc(real), disc(fake), w))
 
     def step(state: CycleGANState, batch: Batch) -> Dict[str, torch.Tensor]:
         step.updating = False
@@ -109,8 +123,8 @@ def make_train_step(cfg: TrainConfig, loss_cfg: LossConfig = LossConfig(), *,
         fake_a, fake_b, id_a, id_b, rec_a, rec_b = forward_all(
             gen_apply, state.g_a2b, state.g_b2a, batch,
             batched=batched_forwards)
-        args = (batch["a"], batch["b"], fake_a, fake_b, rec_a, rec_b, id_a,
-                id_b, state.d_a(fake_a), state.d_b(fake_b), w)
+        args = gather(batch["a"], batch["b"], fake_a, fake_b, rec_a, rec_b,
+                      id_a, id_b, state.d_a(fake_a), state.d_b(fake_b), w)
         terms = checkpoint(loss_terms, *args, use_reentrant=False) \
             if remat else loss_terms(*args)
         opts = (state.opt_g, state.opt_d_a, state.opt_d_b)
@@ -123,6 +137,8 @@ def make_train_step(cfg: TrainConfig, loss_cfg: LossConfig = LossConfig(), *,
         d_b_loss = d_loss(state.d_b, batch["b"], fake_b, w)
         grads.append(torch.autograd.grad(d_b_loss, _params(state.opt_d_b)))
 
+        if world > 1:
+            grads = [all_reduce_mean(gs) for gs in grads]
         step.updating = True
         for opt, gs in zip(opts, grads):
             for p, g in zip(_params(opt), gs):

@@ -183,13 +183,16 @@ def test_engine_default_device_requires_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"forward": "packed"}, "packed"), ({"mesh": object()}, "multi-device"),
+    ({"forward": "packed"}, "packed"),
+    ({"mesh": [["cpu", "cpu"], ["cpu", "cpu"]]}, "'sp'.*ROADMAP"),
     ({"masks": True}, "mask")],
     ids=["kw1-packed", "kw2-multi-device", "kw3-mask"])
 def test_engine_refuses_unported_modes(kw, match):
-    """The packed forward and a mesh are not ported. Mask-conditioned
-    checkpoints are served; what is refused is a checkpoint whose input
-    channels do not fit its range's masks (3 channels on LUNG's one mask)."""
+    """The packed forward and a mesh with an 'sp' axis (a 2-D device grid)
+    are not ported; a 1-D data mesh is served (tests/test_torch_parallel.py).
+    Mask-conditioned checkpoints are served; what is refused is a checkpoint
+    whose input channels do not fit its range's masks (3 channels on LUNG's
+    one mask)."""
     sd = init_generator_state_dict(0, 1, BASE, 1)
     st, exc = sd, NotImplementedError
     if kw.pop("masks", False):
@@ -308,17 +311,23 @@ def test_generate_cli_writes_quantized_series(tmp_path, flags, quant):
 
 @pytest.mark.parametrize("flags,desc", [
     (["--write_working"], "DuCoSyGAN sCECT v2"),
-    (["--num_devices", "2"], None),
+    (["--num_devices", "2", "--device", "cuda"], None),
     (["--synthesis_mode", "additive"], "DuCoSyGAN sCECT v2"),
     (["--soft_squeeze", "--write_working"], "DuCoSyGAN sCECT v2")],
     ids=["flags0", "flags3", "flags4", "flags5"])
-def test_generate_cli_refuses_unported_flags(tmp_path, flags, desc):
-    """Only --num_devices > 1 is still refused. --write_working (also with
-    --soft_squeeze) runs the working path and writes the working series;
-    --synthesis_mode additive without it serves the fast path, as the JAX
-    CLI does (tests/test_torch_synthesis.py holds both paths' numbers)."""
+def test_generate_cli_refuses_unported_flags(tmp_path, monkeypatch, flags,
+                                            desc):
+    """--num_devices asking for more cards than are visible raises (no
+    fallback to fewer; serving on a data mesh: tests/test_torch_parallel.py).
+    --write_working (also with --soft_squeeze) runs the working path and
+    writes the working series; --synthesis_mode additive without it serves
+    the fast path, as the JAX CLI does (tests/test_torch_synthesis.py holds
+    both paths' numbers)."""
     if desc is None:
-        with pytest.raises(NotImplementedError, match="not ported"):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(ValueError, match="2 CUDA cards asked for, 1 "
+                                             "visible"):
             tgen.main(["--dataset_names", "none", "--device", "cpu", *flags])
         return
     write_dataset(str(tmp_path / "input"), n_patients=1, n_slices=2,

@@ -84,7 +84,8 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
                 "data.loader", "data.pairing", "utils.logging",
                 "ops.kernels.conv_in", "ops.kernels.proto_conv_in",
                 "eval.metrics", "eval.lpips", "eval.report", "cli.calculate",
-                "infer.synthesis", "train.torch_resume"):
+                "infer.synthesis", "train.torch_resume", "parallel.mesh",
+                "parallel.launch"):
         assert f"ducosy_tpu_torch.{mod}" in names, mod
     code = f"""
 import importlib, importlib.abc, sys
@@ -112,6 +113,51 @@ assert not [m for m in sys.modules if m.split(".")[0] in {BANNED!r}]
 """
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
                    timeout=300)
+
+
+def test_spawned_ranks_run_with_jax_and_the_jax_package_blocked(tmp_path):
+    """Two gloo ranks spawned by ``parallel.launch`` take a data-parallel
+    train step in interpreters whose ``sitecustomize`` refuses jax, flax,
+    optax and ducosy_tpu from their first import on (the parent's too)."""
+    (tmp_path / "sitecustomize.py").write_text(f"""
+import importlib.abc, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {BANNED!r}:
+            raise ImportError("blocked in this test: " + name)
+
+sys.meta_path.insert(0, Refuse())
+""")
+    code = f"""
+import sys
+import numpy as np
+from ducosy_tpu_torch.config import SOFT_TISSUE, ModelConfig, TrainConfig, replace
+from ducosy_tpu_torch.parallel.launch import spawn
+from ducosy_tpu_torch.train.loop import run_steps
+from ducosy_tpu_torch.train.state import init_state_dicts
+
+if __name__ == "__main__":
+    model = ModelConfig(num_residual_blocks=1, base_channels=8,
+                        disc_base_channels=8)
+    cfg = replace(TrainConfig(), img_size=16, batch_size=2,
+                  compute_dtype="float32")
+    rng = np.random.default_rng(0)
+    batch = {{"a": rng.uniform(-1, 1, (2, 16, 16, 1)).astype(np.float32),
+              "b": rng.uniform(-1, 1, (2, 16, 16, 1)).astype(np.float32),
+              "masks": np.zeros((2, 16, 16, 2), np.float32)}}
+    ranks = spawn(run_steps, (init_state_dicts(0, SOFT_TISSUE, model),
+                              [batch], cfg, SOFT_TISSUE, model),
+                  ["cpu", "cpu"], timeout=200)
+    assert ranks[0]["spread"] == [0.0]
+    assert np.isfinite(ranks[1]["metrics"][0]["loss_G"])
+    assert not [m for m in sys.modules if m.split(".")[0] in {BANNED!r}]
+"""
+    (tmp_path / "drive.py").write_text(code)
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([str(tmp_path), ROOT]))
+    subprocess.run([sys.executable, str(tmp_path / "drive.py")], check=True,
+                   cwd=ROOT, env=env, timeout=300)
 
 
 # ------------------------------------------------------------ (c) config

@@ -449,9 +449,13 @@ def test_cli_defaults_to_cuda(monkeypatch):
         tcli.main(["--dataset_names", "none"])
 
 
-def test_cli_refuses_multi_card():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tcli.main(["--num_devices", "2", "--device", "cpu"])
+def test_cli_refuses_multi_card(monkeypatch):
+    """More cards asked for than are visible raises: no fallback to
+    fewer (multi-card training itself: tests/test_torch_parallel.py)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="2 CUDA cards asked for, 1 visible"):
+        tcli.main(["--num_devices", "2", "--dataset_names", "none"])
 
 
 def test_checkpoint_round_trip(tmp_path, jax_run):
