@@ -139,6 +139,28 @@ drives the serving path the way a user does, at full model width:
      1e-5, LPIPS within rtol 2e-4, both wall times, and the card time of
      MS-SSIM and of LPIPS for the 32-slice patient.
 
+  11. the masking workflow on 9e's tree, a TotalSegmentator stand-in
+     (written into the run's directory, first on the PATH of the CLI's
+     workers) deriving labels from the input HU, heart 51 with a blob
+     beyond a z gap: masking --stage generate -> modify_heart_mask (the
+     blob cut) -> masking --stage masking (each masked series has the
+     exclusion mask's voxel count at 9999 and the source elsewhere) ->
+     calculate --mask on the card and with --device cpu (9e's rule; the
+     scores differ from 9e's unmasked ones) -> anonymize and anonymize
+     --mask (the mapping rows, the volumes); the generate stage without the
+     binary (each patient reports it, the stage returns); visualize and
+     mask_preview where PIL imports; each step's wall time, the share of
+     voxels masked;
+  12. the aux model: train_nmodel (NModelConfig defaults: standard UNet3D,
+     base 16, (1, 512, 512) patches, batch 1, lr 5e-5, clip 1.0, fp32) for
+     20 steps over 2 epochs on a phantom diff tree (finite losses and
+     validation L1, both checkpoints, the running statistics moved); 6
+     timed steps (the median of the 5 after the first, peak memory);
+     load_model on a checkpoint predicting what the saved module predicts,
+     exactly; predict_volume on phase 4's phantom, card against CPU within
+     NM_PREDICT_TOL_HU, slices/s; one step and one prediction of
+     UNet3DLight.
+
   10t. the data-parallel training step: two ranks on this card over gloo
      (NCCL refuses two ranks on one device), spawned by
      ``parallel.launch`` and each taking 4 rows of phase 7's tree, against
@@ -2672,17 +2694,7 @@ def run_calculate_phase(dev, tmp: Path):
         else:
             os.environ[lpips.ENV_WEIGHTS] = saved_env
     card, host = (results[d]["Smoke/patient00"] for d in ("cuda", "cpu"))
-    for m in report.ALL_METRICS:
-        a, b = np.asarray(card[m], np.float64), np.asarray(host[m],
-                                                           np.float64)
-        if m in ("ms_ssim", "lpips"):
-            ok = np.all(np.isfinite(a)) and (
-                np.allclose(a, b, rtol=0, atol=1e-5) if m == "ms_ssim"
-                else np.allclose(a, b, rtol=2e-4, atol=0))
-        else:
-            ok = card[m] == host[m]
-        if not ok:
-            fail(f"9e: {m} on the card {card[m]} vs the CPU {host[m]}")
+    check_card_vs_cpu("9e", card, host)
     slices = {d: read_detail(tmp / f"eval_output_{d}")
               for d in ("cuda", "cpu")}
     d_ms = np.abs(slices["cuda"]["ms_ssim"] - slices["cpu"]["ms_ssim"])
@@ -2709,6 +2721,392 @@ def run_calculate_phase(dev, tmp: Path):
     log(f"card time for one {SLICES}-slice patient (CUDA events, upload "
         f"and per-slice download included): MS-SSIM {ms_ssim_ms:.3f} ms, "
         f"LPIPS {lpips_ms:.3f} ms")
+
+
+# ------------------------------------------------------------ phases 11, 12
+# Phase 11: the masking workflow on 9e's tree, a TotalSegmentator stand-in
+# first on the PATH of the CLI's workers. Checks: each masked series has as
+# many 9999 pixels as the exclusion mask has voxels and the source's pixels
+# elsewhere; the masked scores, card against CPU, by 9e's rule; the masked
+# scores differ from 9e's; the mapping CSVs' rows; with the stand-in off the
+# PATH, each patient reports the missing binary and the stage returns.
+# Phase 12: the aux model (NModelConfig defaults: standard UNet3D, base 16,
+# (1, 512, 512) patches, batch 1, lr 5e-5, clip 1.0, fp32) trained on a
+# phantom diff tree, then predicting phase 4's phantom. Bounds set before
+# the first run: load_model on a checkpoint predicts what the saved module
+# predicts, exactly (cuDNN deterministic); the card's prediction within
+# NM_PREDICT_TOL_HU of the CPU's (fp32, TF32 off) on every voxel.
+NM_PATIENTS, NM_SLICES = 4, 4      # the phantom diff tree
+NM_EPOCHS, NM_MAX_STEPS = 2, 10    # train_nmodel: 20 steps
+NM_TIMED = 6                       # timed steps (median of the 5 after one)
+NM_PREDICT_TOL_HU = 0.5
+
+TOTALSEG_STAND_IN = """#!{python}
+# TotalSegmentator stand-in: -i <nifti> -o <out> --device D --ml writes a
+# multi-label <out>.nii from the input HU (x, y, z): aorta 52 (contrast),
+# lung vessels 55, heart 51 (soft tissue in a disk, and a blob beyond a
+# z gap that the heart cleanup cuts), lungs 13 and spine 30 (not targets)
+import sys
+sys.path.insert(0, {root!r})
+import numpy as np
+from ducosy_tpu_torch.dicom.nifti import read_nifti, write_nifti
+args = sys.argv[1:]
+src, out = args[args.index("-i") + 1], args[args.index("-o") + 1]
+assert args[args.index("--device") + 1] == "gpu" and "--ml" in args
+hu, affine = read_nifti(src)
+nx, ny, nz = hu.shape
+xx = (np.arange(nx) / nx)[:, None, None]
+yy = (np.arange(ny) / ny)[None, :, None]
+zz = np.arange(nz)[None, None, :]
+labels = np.zeros(hu.shape, np.uint8)
+labels[hu < -500] = 13
+labels[(hu > 100) & (hu < 250)] = 55
+labels[(hu > 250) & (hu < 500)] = 52
+labels[hu > 500] = 30
+disk = (yy - 0.62) ** 2 + (xx - 0.5) ** 2
+cut = int(0.55 * nz)
+soft = (hu > -100) & (hu < 100)
+labels[soft & (disk < 0.09 ** 2) & (zz < cut)] = 51
+labels[soft & (disk < 0.04 ** 2) & (zz >= cut + 3)] = 51
+write_nifti(out + ".nii", labels, affine)
+"""
+
+
+def write_stand_in(bin_dir: Path) -> str:
+    bin_dir.mkdir(parents=True, exist_ok=True)
+    path = bin_dir / "TotalSegmentator"
+    path.write_text(TOTALSEG_STAND_IN.format(python=sys.executable,
+                                             root=str(ROOT)))
+    path.chmod(0o755)
+    return str(bin_dir)
+
+
+def check_card_vs_cpu(what: str, card: dict, host: dict) -> None:
+    """9e's rule: host metrics equal, MS-SSIM within 1e-5, LPIPS within
+    rtol 2e-4, MS-SSIM and LPIPS finite."""
+    from ducosy_tpu_torch.eval import report
+
+    for m in report.ALL_METRICS:
+        a, b = np.asarray(card[m], np.float64), np.asarray(host[m],
+                                                           np.float64)
+        if m in ("ms_ssim", "lpips"):
+            ok = np.all(np.isfinite(a)) and (
+                np.allclose(a, b, rtol=0, atol=1e-5) if m == "ms_ssim"
+                else np.allclose(a, b, rtol=2e-4, atol=0))
+        else:
+            ok = card[m] == host[m]
+        if not ok:
+            fail(f"{what}: {m} on the card {card[m]} vs the CPU {host[m]}")
+
+
+def run_cli(main, argv) -> tuple[str, float]:
+    """A CLI's ``main`` in this process: (its standard output, seconds)."""
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    secs = time.perf_counter() - t0
+    log("    " + buf.getvalue().strip().replace("\n", "\n    "))
+    return buf.getvalue(), secs
+
+
+@contextlib.contextmanager
+def env_path(first: str | None):
+    """PATH with ``first`` in front (None: as it was), restored after."""
+    import os
+
+    saved = os.environ.get("PATH", "")
+    os.environ["PATH"] = (first + os.pathsep + saved) if first else saved
+    try:
+        yield
+    finally:
+        os.environ["PATH"] = saved
+
+
+def run_masking_phase(dev, tmp: Path):
+    """Phase 11: masking --stage generate (the stand-in) ->
+    modify_heart_mask -> masking --stage masking -> calculate --mask on the
+    card and on the CPU -> anonymize and anonymize --mask, on 9e's tree;
+    then the generate stage without the binary, and visualize and
+    mask_preview where PIL imports."""
+    import csv
+    import os
+    import pickle
+    import shutil
+
+    from ducosy_tpu_torch.cli import (anonymize, calculate, masking,
+                                      modify_heart_mask)
+    from ducosy_tpu_torch.dicom.nifti import read_nifti
+    from ducosy_tpu_torch.eval import lpips
+    from ducosy_tpu_torch.masks.totalseg import (MASK_FILL_VALUE,
+                                                 build_exclusion_mask)
+
+    inp, root = tmp / "eval_input", tmp / "mask_output"
+    shutil.copytree(tmp / "output_overwrite", root)
+    pid = "patient00"
+    common = ["--input_dir_root", str(inp), "--output_dir_root", str(root),
+              "--dataset_names", "Smoke"]
+    secs = {}
+    with env_path(write_stand_in(tmp / "bin")):
+        out, secs["generate"] = run_cli(
+            masking.main, common + ["--stage", "generate", "--batch_size",
+                                    "1"])
+    if f"  {pid}: OK" not in out.splitlines():
+        fail(f"11: the generate stage did not segment {pid}: {out!r}")
+    _, secs["modify_heart_mask"] = run_cli(modify_heart_mask.main, [
+        "--output_dir_root", str(root), "--dataset_names", "Smoke",
+        "--num_workers", "1"])
+    raw, _ = read_nifti(str(root / "mask" / "Smoke" / f"{pid}.nii"))
+    cleaned, _ = read_nifti(str(root / "modified_mask" / "Smoke"
+                                / f"{pid}.nii"))
+    cut = int(0.55 * SLICES)
+    heart = [int((v == 51).sum()) for v in (raw, cleaned)]
+    if not (0 < heart[1] < heart[0] and (raw[..., cut + 3:] == 51).any()
+            and not (cleaned[..., cut:] == 51).any()
+            and ((raw == 52) == (cleaned == 52)).all()):
+        fail(f"11: heart cleanup: label 51 {heart[0]} -> {heart[1]} voxels, "
+             "the blob beyond the z gap not cut, or another label moved")
+    _, secs["masking"] = run_cli(masking.main, common + ["--stage",
+                                                         "masking"])
+    excl = build_exclusion_mask(np.transpose(cleaned, (2, 1, 0)))
+    n_excl = int(excl.sum())
+    sources = {"POST VUE": inp / "Smoke" / pid / "POST VUE",
+               "POST STD": inp / "Smoke" / pid / "POST STD",
+               "generated": root / "Smoke" / pid}
+    for sub, src in sources.items():
+        got = read_series(root / "masked" / "Smoke" / pid / sub, None,
+                          f"11 masked {sub}")
+        want = read_series(src, None, f"11 {sub}").astype(np.int16)
+        fill = got == MASK_FILL_VALUE
+        if not (int(fill.sum()) == n_excl and (fill == (excl != 0)).all()
+                and np.array_equal(got[~fill], want[~fill])):
+            fail(f"11: masked {sub}: {int(fill.sum())} pixels at "
+                 f"{MASK_FILL_VALUE} for {n_excl} mask voxels, or another "
+                 "pixel moved")
+    log(f"masked 3 series of {SLICES} x {SIZE}^2: {n_excl} voxels a series "
+        f"({100.0 * n_excl / excl.size:.3f}% masked), heart {heart[0]} -> "
+        f"{heart[1]} voxels after cleanup")
+
+    weights = str(tmp / "lpips_alex.npz")
+    saved_env = os.environ.get(lpips.ENV_WEIGHTS)
+    os.environ[lpips.ENV_WEIGHTS] = weights
+    results = {}
+    try:
+        for device in ("cuda", "cpu"):
+            droot = tmp / f"mask_eval_{device}"
+            shutil.copytree(root / "masked", droot / "masked")
+            t0 = time.perf_counter()
+            results[device] = calculate.main([
+                "--input_dir_root", str(inp), "--output_dir_root",
+                str(droot), "--dataset_names", "Smoke", "--fast", "--mask",
+                "--num_workers", "2", "--device", device])
+            secs[f"calculate --mask ({device})"] = time.perf_counter() - t0
+    finally:
+        if saved_env is None:
+            del os.environ[lpips.ENV_WEIGHTS]
+        else:
+            os.environ[lpips.ENV_WEIGHTS] = saved_env
+    card, host = (results[d][f"Smoke/{pid}"] for d in ("cuda", "cpu"))
+    check_card_vs_cpu("11 calculate --mask", card, host)
+    with open(tmp / "eval_output_cuda" / "calculated" / "results.pkl",
+              "rb") as f:
+        unmasked = pickle.load(f)[f"Smoke/{pid}"]
+    moved = [m for m in card if card[m] != unmasked[m]]
+    if "mae" not in moved or "ms_ssim" not in moved:
+        fail(f"11: the masked scores {card} equal 9e's unmasked {unmasked}")
+    log("masked calculate: card vs CPU host metrics equal, MS-SSIM |d| "
+        f"{abs(card['ms_ssim'][0] - host['ms_ssim'][0]):.2e}, LPIPS rel "
+        f"{abs(card['lpips'][0] / host['lpips'][0] - 1):.2e}; masked vs "
+        "unmasked (card) " + ", ".join(
+            f"{m} {card[m][0]:.6g} vs {unmasked[m][0]:.6g}"
+            for m in ("mae", "psnr", "ssim", "ms_ssim", "lpips")))
+
+    for flag in ((), ("--mask",)):
+        _, secs[f"anonymize {' '.join(flag)}".strip()] = run_cli(
+            anonymize.main, common + list(flag))
+        with open(root / "anonymization_mapping.csv") as f:
+            rows = list(csv.reader(f))
+        vols = sorted((root / "anonymized").glob("*.npy"))
+        want = [["Category", "Site", "OriginalPatientID",
+                 "AnonymizedPatientID"]] + [[c, "Smoke", pid] for c in (
+                     "original", "generated")]
+        if [r[:3] if i else r for i, r in enumerate(rows)] != want or \
+                sorted(r[3] + ".npy" for r in rows[1:]) != \
+                [v.name for v in vols]:
+            fail(f"11: anonymize {flag}: mapping rows {rows}, volumes "
+                 f"{[v.name for v in vols]}")
+        for v in vols:
+            a = np.load(v)
+            filled = int((a == MASK_FILL_VALUE - 1024).sum())
+            if a.shape != (SLICES, SIZE, SIZE) or a.dtype != np.int16 or \
+                    (flag and filled != n_excl):
+                fail(f"11: anonymize {flag}: {v.name} {a.shape} {a.dtype}, "
+                     f"{filled} masked voxels")
+
+    missing = tmp / "mask_missing"
+    with env_path(None):
+        out, secs["generate without the binary"] = run_cli(
+            masking.main, ["--input_dir_root", str(inp), "--output_dir_root",
+                           str(missing), "--dataset_names", "Smoke",
+                           "--stage", "generate", "--batch_size", "1"])
+    if f"  {pid}: FAILED — TotalSegmentator command not found" not in \
+            out.splitlines() or any((missing / "mask" / "Smoke").iterdir()):
+        fail(f"11: the generate stage without the binary printed {out!r}")
+    try:
+        import PIL  # noqa: F401
+    except ImportError as err:
+        log(f"visualize and mask_preview not run: PIL does not import on "
+            f"this machine ({err})")
+    else:
+        from ducosy_tpu_torch.cli import mask_preview, visualize
+
+        _, secs["visualize"] = run_cli(visualize.main, common + [
+            "--num_workers", "4"])
+        if len(list((root / "visualized").rglob("*.png"))) != SLICES + 1:
+            fail("11: visualize did not write a comparison a slice and the "
+                 "grid")
+        png = tmp / "mask_preview.png"
+        out, secs["mask_preview"] = run_cli(mask_preview.main, [
+            str(sorted((inp / "Smoke" / pid / "POST VUE").glob("*.dcm"))[0]),
+            "--output", str(png)])
+        if not png.is_file() or "lung_vessel" not in out:
+            fail("11: mask_preview wrote no overlay or no statistics")
+    log("wall: " + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
+        + f", 1 patient of {SLICES} x {SIZE}^2 ({gpu_line()})")
+
+
+def write_diff_tree(root: Path) -> None:
+    """vue/{pid}_vue.npy (phantom HU) and diff_map/{pid}_diff.npy (the
+    phantom with contrast minus the plain one, clipped at 0)."""
+    for sub in ("vue", "diff_map"):
+        (root / sub).mkdir(parents=True)
+    for k in range(NM_PATIENTS):
+        seed = SEED + 40 + k
+        plain = chest_phantom(NM_SLICES, SIZE, seed).astype(np.float32) \
+            - 1024.0
+        post = chest_phantom(NM_SLICES, SIZE, seed, contrast=True).astype(
+            np.float32) - 1024.0
+        np.save(root / "vue" / f"p{k}_vue.npy", plain)
+        np.save(root / "diff_map" / f"p{k}_diff.npy",
+                np.maximum(post - plain, 0.0))
+
+
+def run_nmodel_phase(dev, tmp: Path):
+    """Phase 12: train_nmodel (20 steps over 2 epochs), its checkpoints and
+    running statistics; NM_TIMED timed steps; load_model exact on the card;
+    predict_volume on phase 4's phantom, card against CPU; one step and one
+    prediction of UNet3DLight."""
+    import json
+
+    import torch
+
+    from ducosy_tpu_torch.models import unet3d
+    from ducosy_tpu_torch.models.nmodel_data import (CTDiffDataset,
+                                                     NModelConfig)
+    from ducosy_tpu_torch.train import nmodel_loop
+
+    data = tmp / "nmodel_data"
+    write_diff_tree(data)
+    cfg = NModelConfig(data_dir=str(data), output_dir=str(tmp / "nmodel"),
+                       patches_per_volume=NM_SLICES)
+    card = gpu_line()
+    t0 = time.perf_counter()
+    summary = nmodel_loop.train_nmodel(cfg, max_epochs=NM_EPOCHS,
+                                       max_steps=NM_MAX_STEPS, device=dev)
+    train_s = time.perf_counter() - t0
+    with open(tmp / "nmodel" / "nmodel_metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    ckpt = {n: Path(cfg.checkpoint_dir) / f"nmodel_{n}.pth"
+            for n in ("latest", "best")}
+    if [r["epoch"] for r in records] != list(range(1, NM_EPOCHS + 1)) or \
+            not all(np.isfinite(r["train_l1"]) and np.isfinite(r["val_l1"])
+                    for r in records) or \
+            not np.isfinite(summary["val_l1"]) or \
+            not all(p.is_file() for p in ckpt.values()):
+        fail(f"12: train_nmodel: {records}, {summary}, checkpoints "
+             f"{[p.is_file() for p in ckpt.values()]}")
+    trained = unet3d.load_model(str(ckpt["latest"]), device=dev)
+    norms = [m for m in trained.modules() if isinstance(m, unet3d.BatchNorm)]
+    steps = NM_EPOCHS * NM_MAX_STEPS
+    if not all(int(m.num_batches_tracked) == steps for m in norms) or \
+            not all(float((m.running_var - 1).abs().max()) > 0 and
+                    float(m.running_mean.abs().max()) > 0 for m in norms):
+        fail("12: the BatchNorm running statistics did not move "
+             f"{steps} steps")
+    log(f"train_nmodel: {steps} steps over {NM_EPOCHS} epochs in "
+        f"{train_s:.2f} s; train L1 "
+        + ", ".join(f"{r['train_l1']:.5f}" for r in records)
+        + ", val L1 " + ", ".join(f"{r['val_l1']:.5f}" for r in records)
+        + f"; {len(norms)} norms' running statistics moved")
+
+    ds = CTDiffDataset(str(data), "train", patch_size=cfg.patch_size,
+                       patches_per_volume=NM_SLICES)
+    batches = [{k: v[None] for k, v in ds[i].items()}
+               for i in range(NM_TIMED)]
+    torch.manual_seed(SEED)
+    model = nmodel_loop.build_nmodel(cfg).to(dev)
+    _, step, _ = nmodel_loop.make_nmodel_step(model, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, losses = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        losses.append(float(step(b)))
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not np.all(np.isfinite(losses)):
+        fail(f"12: step losses {losses}")
+    path = tmp / "nmodel_timed.pth"
+    nmodel_loop.save_nmodel_pth(str(path), model)
+    loaded = unet3d.load_model(str(path), device=dev)
+    vol = chest_phantom(SLICES, SIZE, SEED).astype(np.float32) - 1024.0
+    deterministic = torch.backends.cudnn.deterministic
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        want = unet3d.predict_volume(model, vol, device=dev)
+        got = unet3d.predict_volume(loaded, vol, device=dev)
+        t0 = time.perf_counter()
+        unet3d.predict_volume(loaded, vol, device=dev)
+        predict_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.backends.cudnn.benchmark = benchmark
+    if not np.array_equal(got, want):
+        fail(f"12: load_model's prediction differs from the saved module's "
+             f"by {np.abs(got - want).max()} HU")
+    t0 = time.perf_counter()
+    host = unet3d.predict_volume(unet3d.load_model(str(path), device="cpu"),
+                                 vol, device="cpu")
+    host_s = time.perf_counter() - t0
+    d = np.abs(got - host)
+    if got.shape != vol.shape or not np.all(np.isfinite(got)) or \
+            d.max() > NM_PREDICT_TOL_HU:
+        fail(f"12: predict_volume card vs CPU max |d| {d.max()} HU "
+             f"(bound {NM_PREDICT_TOL_HU})")
+
+    light_cfg = NModelConfig(model_type="light",
+                             patches_per_volume=NM_SLICES)
+    torch.manual_seed(SEED)
+    light = nmodel_loop.build_nmodel(light_cfg).to(dev)
+    _, light_step, _ = nmodel_loop.make_nmodel_step(light, light_cfg)
+    light_loss = float(light_step(batches[0]))
+    light_pred = unet3d.predict_volume(light, vol[:8], device=dev)
+    if not (isinstance(light, unet3d.UNet3DLight) and
+            np.isfinite(light_loss) and np.all(np.isfinite(light_pred))):
+        fail(f"12: UNet3DLight step loss {light_loss}, prediction finite "
+             f"{np.all(np.isfinite(light_pred))}")
+    log(f"UNet3D base {cfg.base_channels} at {cfg.patch_size}, batch 1, "
+        f"fp32: {statistics.median(times[1:]):.4f} s a step (median of "
+        f"{NM_TIMED - 1} after the first {times[0]:.3f} s), peak "
+        f"{peak / 2**30:.2f} GiB; predict_volume {SLICES} slices "
+        f"{SLICES / predict_s:.2f} slices/s (slice_batch 8, upload and "
+        f"download included); card vs CPU max |d| {d.max():.3e} HU, mean "
+        f"{d.mean():.3e} (CPU {host_s:.2f} s); load_model exact; "
+        f"UNet3DLight step loss {light_loss:.5f} ({card})")
 
 
 # ------------------------------------------------------------ phases 10
@@ -3198,6 +3596,16 @@ def main() -> None:
         phase("7", run_training_phase, k2, k4, Path(run_dir), records)
         phase("8", run_masked_cli_phase, k1, k2, dev, Path(run_dir))
         phase("7r", run_resume_phase, k2, k4, dev, Path(run_dir), records)
+        with tempfile.TemporaryDirectory() as gen_dir:
+            gen = {}
+            phase("9w", run_working_phase, k1, k2, st, lung, Path(gen_dir),
+                  fast_series, gen)
+            phase("9a", run_additive_phase, k1, k2, st, lung, Path(gen_dir),
+                  gen)
+            phase("9p", run_postprocess_phase, dev, gen)
+            phase("9e", run_calculate_phase, dev, Path(gen_dir))
+            phase("11", run_masking_phase, dev, Path(gen_dir))
+            phase("12", run_nmodel_phase, dev, Path(gen_dir))
         data = Path(run_dir, "data")
         phase("10t", run_dp_training_phase, [dev, dev], "gloo", data,
               "10t training")
@@ -3205,13 +3613,6 @@ def main() -> None:
               engine_out, "10s serving")
         phase("10n", run_multi_card_phase, k1, k2, st, lung, engine_out,
               data)
-    with tempfile.TemporaryDirectory() as gen_dir:
-        gen = {}
-        phase("9w", run_working_phase, k1, k2, st, lung, Path(gen_dir),
-              fast_series, gen)
-        phase("9a", run_additive_phase, k1, k2, st, lung, Path(gen_dir), gen)
-        phase("9p", run_postprocess_phase, dev, gen)
-        phase("9e", run_calculate_phase, dev, Path(gen_dir))
     if any(m.split(".")[0] in ("jax", "flax", "optax", "ducosy_tpu")
            for m in sys.modules):
         fail("JAX or the JAX package was imported")

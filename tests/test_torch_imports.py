@@ -9,7 +9,8 @@ agree with the originals.
 (c) the copies against their originals on the same inputs: config constants
     field by field, DICOM files byte for byte through both codecs, mask
     arrays, patient pairing and loader batches, the evaluation suite's host
-    metrics (same source, same values); and the two things the
+    metrics (same source, same values), the NIfTI codec, the heart cleanup
+    and the TotalSegmentator fleet (same source); and the two things the
     port's copies do differently (the native parser's build at first use,
     ``set_pixel_array`` resetting a compressed source's transfer syntax).
 """
@@ -77,7 +78,8 @@ def test_no_source_imports_jax_or_the_jax_package():
 def test_port_runs_with_jax_and_the_jax_package_blocked():
     """A fresh interpreter whose ``sys.meta_path`` refuses jax, flax, optax
     and ducosy_tpu imports every module of the port, builds a CPU engine
-    with a mask-conditioned checkpoint and runs a patient through it."""
+    with a mask-conditioned checkpoint and runs a patient through it, then
+    builds an exclusion mask and predicts with the aux model."""
     names = [m.name for m in pkgutil.walk_packages(
         ducosy_tpu_torch.__path__, "ducosy_tpu_torch.")]
     for mod in ("config", "dicom.codec", "dicom.native", "masks.anatomy",
@@ -85,7 +87,9 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
                 "ops.kernels.conv_in", "ops.kernels.proto_conv_in",
                 "eval.metrics", "eval.lpips", "eval.report", "cli.calculate",
                 "infer.synthesis", "train.torch_resume", "parallel.mesh",
-                "parallel.launch"):
+                "parallel.launch", "dicom.nifti", "masks.heart",
+                "masks.totalseg", "models.unet3d", "models.nmodel_data",
+                "train.nmodel_loop", "cli.masking", "cli.anonymize"):
         assert f"ducosy_tpu_torch.{mod}" in names, mod
     code = f"""
 import importlib, importlib.abc, sys
@@ -109,6 +113,14 @@ eng = DualGeneratorEngine(init_generator_state_dict(0, 3, 8, 1),
 vol = np.full((3, 48, 48), 1000, np.int16)
 out = eng.run_patient(vol, 1.0, -1024.0, chunk=2)
 assert out.shape == vol.shape and out.dtype == np.int16
+from ducosy_tpu_torch.masks.totalseg import build_exclusion_mask
+from ducosy_tpu_torch.models.unet3d import UNet3DLight, predict_volume
+labels = np.zeros((2, 16, 16), np.uint8)
+labels[:, 4:8, 4:8] = 51
+assert build_exclusion_mask(labels).sum() > 32
+diff = predict_volume(UNet3DLight(base_channels=4), vol[:, :16, :16],
+                      slice_batch=2, device="cpu")
+assert diff.shape == (3, 16, 16)
 assert not [m for m in sys.modules if m.split(".")[0] in {BANNED!r}]
 """
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
@@ -366,3 +378,45 @@ def test_eval_host_metric_matches_original(name):
     v1[1] = v2[1] = 0.0
     v2[2] = v1[2]
     assert b(v1, v2) == a(v1, v2)
+
+
+# ------------------------------------- (c) NIfTI, heart cleanup, the fleet
+_SAME_SOURCE = [
+    ("dicom.nifti", n) for n in ("read_nifti", "write_nifti", "dicom_affine",
+                                 "_open")] + [
+    ("masks.heart", n) for n in ("_z_gap_cut", "modify_heart_mask_volume",
+                                 "modify_heart_mask_file")] + [
+    ("masks.totalseg", n) for n in (
+        "kill_process_tree", "_register_pid", "_unregister_pid",
+        "cleanup_workers", "register_signal_handlers", "dicom_to_nifti",
+        "run_totalsegmentator", "segment_patient")]
+
+
+@pytest.mark.parametrize("module,name", _SAME_SOURCE,
+                         ids=[f"{m}.{n}" for m, n in _SAME_SOURCE])
+def test_host_copy_has_the_original_source(module, name):
+    """The port's copy of each host function is the original's text, with
+    the package's name the only change (its imports)."""
+    import importlib
+
+    a = getattr(importlib.import_module(f"ducosy_tpu.{module}"), name)
+    b = getattr(importlib.import_module(f"ducosy_tpu_torch.{module}"), name)
+    assert inspect.getsource(b).replace("ducosy_tpu_torch", "ducosy_tpu") \
+        == inspect.getsource(a)
+
+
+def test_host_copy_constants_match_original():
+    import ducosy_tpu.dicom.nifti as jn
+    import ducosy_tpu.masks.heart as jh
+    import ducosy_tpu.masks.totalseg as jt
+    import ducosy_tpu_torch.dicom.nifti as tn
+    import ducosy_tpu_torch.masks.heart as th
+    import ducosy_tpu_torch.masks.totalseg as tt
+
+    for a, b, names in (
+            (jn, tn, ("_HDR_SIZE", "_MAGIC", "_DTYPES", "_CODES")),
+            (jh, th, ("HEART_LABEL", "GAP_THRESHOLD", "REGION_SIZE_THRESHOLD",
+                      "OFFSET", "OFFSET_Y_BASE", "OFFSET_Z")),
+            (jt, tt, ("MASK_TARGET_LABELS", "MASK_FILL_VALUE", "TIMEOUT_S"))):
+        for n in names:
+            assert getattr(a, n) == getattr(b, n), n
