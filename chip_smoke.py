@@ -64,6 +64,27 @@ drives the serving path the way a user does, at full model width:
      trunk="tail" at quant="trunk" with exact K2-int8 and K4 counts and its
      slices/s with K4 on its route and on the tiled one (3% slack);
   5q. the generate CLI with --quant trunk, read back from disk;
+  2k. K2 with phases at the packed forward's three phase-pooled norms: the
+     stem (16, 256, 256, 256) and up1 (16, 128, 128, 512) with phases 4,
+     up2 (16, 128, 128, 1024) with phases 16, bf16 and fp32, against the
+     plain version, timed beside it and its bound;
+  4k. the engine at forward="packed" (bf16, the phase-4 generators and
+     phantom) for trunks chain3, mega, mono, pallas and xla: exact launch
+     counts (chain3: K1 12, K2 20 of which 12 with phases > 1), each series
+     against the module forward's (|dHU| mean / p99 / max, share within 1
+     stored unit; a mean above 25 HU fails), fp32 packed chain3 against
+     fp32 module plain (1 stored unit on 99.9%), slices/s in rounds that
+     alternate the module forward and the five trunks, one profiled
+     patient of packed chain3;
+  4kq. forward="packed" at quant="trunk" and "full" under chain3 and under
+     xla (the XLA trunk's per-sample dynamic requant): exact counts, raw
+     and final taps against the bf16 module engine (phase 4q's bound),
+     slices/s in alternating rounds;
+  8k. a seeded generator pair without CBAM through the module forward
+     (trunk "auto": plain), the module forward with fused_norm (the 18
+     trunk norms on K2: 72 launches a patient) and the packed forward (its
+     XLA trunk): exact counts, fp32 series within 1 stored unit of the
+     plain module forward on 99.9%, bf16 |dHU|, slices/s;
   7. the port's training CLI on a synthetic 512^2 chest-phantom patient
      tree with mask generation at SOFT_TISSUE (3 input channels): 9 blocks,
      base 64, batch 8, bf16, trunk="tail", 7 steps (s/step: the median of
@@ -74,6 +95,12 @@ drives the serving path the way a user does, at full model width:
      with trunk="plain" from the same init and batches; both first-step
      losses, their difference, s/step, the peak memory and the remat mode
      are printed.
+
+  7k. phase 7's tree with --gen_forward packed (CBAM, remat off, 7 steps):
+     finite losses, K2-K5 54 launches a step as the tail trunk's, s/step
+     and peak memory beside phase 7's tail run; then a SOFT_TISSUE range
+     without CBAM with fused_norm (trunk "plain", 3 steps): K2 108 and K3
+     108 launches a step, no K4/K5.
 
   3m. K7 (conv3x3_in) and K8 (conv_block_tail), the mega trunk's kernels,
      against their plain versions on (16, 130, 130, 256), fp32 and bf16: K7
@@ -1725,6 +1752,387 @@ def run_quant_engine_phase(k1, k2, k4, dev, st, lung, records):
     # the int8 convs' im2col blocks go back before the training phase
     torch.cuda.empty_cache()
     records[("launches", "tail")] = got
+
+
+# ----------------------------------------------------- the packed forward
+# K2p at the packed forward's three phase-pooled norms (name, shape, phases):
+# the stem, packed-4 of 512^2 x 64; up1, packed-4 of 256^2 x 128 (the shape
+# of phase 3q's K2P_SHAPE); up2, packed-16 of 512^2 x 64
+K2P_PACKED = (("stem", (N, 256, 256, 256), 4), ("up1", K2P_SHAPE, 4),
+              ("up2", (N, 128, 128, 1024), 16))
+PACKED_TRUNKS = ("chain3", "mega", "mono", "pallas", "xla")
+
+
+def packed_launch_want(trunk: str, quant, n_gens: int) -> dict:
+    """Exact launches of one 32-slice patient (``n_gens`` generator calls:
+    2 generators x the chunks) on the packed forward: the stem, up1 and up2
+    norms are K2 with phases (none under quant="full", whose norms around
+    the static int8 convs stay plain), down1's and down2's K2 phases 1
+    (down2's alone under "full"); the trunk's kernels a call."""
+    phased = 0 if quant == "full" else 3
+    k2 = phased + (1 if quant == "full" else 2)
+    want = {"residual_chain": 0, "instance_norm": k2,
+            "instance_norm (phases > 1)": phased, "instance_norm_int8": 0,
+            "block_tail": 0, "conv3x3_in": 0, "conv_block_tail": 0}
+    if trunk == "chain3":
+        want["residual_chain"] = 3
+    elif trunk == "mono":
+        want["residual_chain"] = BLOCKS
+    elif trunk == "mega":
+        want["conv3x3_in"] = want["conv_block_tail"] = BLOCKS
+    elif trunk == "pallas":
+        want["block_tail"] = BLOCKS
+        want["instance_norm_int8" if quant else "instance_norm"] += BLOCKS
+    else:                                   # xla: no kernel anywhere
+        want = {k: 0 for k in want}
+    return {k: v * n_gens for k, v in want.items()}
+
+
+def packed_counters(k1, k2, k4, k7) -> dict:
+    return {"residual_chain": k1.residual_chain,
+            "instance_norm": k2.instance_norm,
+            "instance_norm_int8": k2.instance_norm_int8,
+            "block_tail": k4.block_tail, "conv3x3_in": k7.conv3x3_in,
+            "conv_block_tail": k7.conv_block_tail}
+
+
+def read_counts(counters: dict, k2) -> dict:
+    got = {k: f.launches for k, f in counters.items()}
+    got["instance_norm (phases > 1)"] = k2.instance_norm.phase_launches
+    return got
+
+
+def zero_counts(counters: dict, k2) -> None:
+    for f in counters.values():
+        f.launches = 0
+    k2.instance_norm.phase_launches = 0
+
+
+def check_k2p_packed(k2, dev, records):
+    """Phase 2k: K2 with phases at the packed forward's three norms, bf16
+    and fp32, against the plain version, timed beside it and its bound."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    failures = []
+    for name, shape, phases in K2P_PACKED:
+        base = k2_input(shape, gen, dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype)[6:]
+            x = base.to(dtype)
+            kw = dict(relu=True, pad=0, phases=phases)
+            got = k2.instance_norm(x, **kw)
+            ref = k2.instance_norm_plain(x, **kw)
+            torch.cuda.synchronize()
+            atol, rtol = TOL[("k2", dname)]
+            ok, emax, emean = compare(got, ref, atol, rtol)
+            ms = cuda_ms(lambda: k2.instance_norm(x, **kw), 20)
+            plain_ms = cuda_ms(lambda: k2.instance_norm_plain(x, **kw), 5)
+            bnd = k2_bound(shape, 0, x.element_size())
+            log(f"K2 phases={phases} {name} {tuple(shape)} {dname}: "
+                f"max|d|={emax:.3e} mean|d|={emean:.3e} (atol {atol}, rtol "
+                f"{rtol}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, "
+                f"{100 * bnd['bound_ms'] / ms:.1f}%) {'ok' if ok else 'FAIL'}")
+            records[("k2p", name, dname)] = dict(
+                max_abs_err=emax, ms=ms, plain_ms=plain_ms, bound=bnd)
+            if not ok:
+                failures.append(f"K2 phases {name} {dname}")
+            del x, got, ref
+        del base
+    if failures:
+        fail(f"kernel disagrees with its plain version: {failures}")
+
+
+def serve(eng, vol):
+    import torch
+
+    t0 = time.perf_counter()
+    out = eng.run_patient(vol, 1.0, -1024.0, chunk=N)
+    torch.cuda.synchronize()
+    if out.dtype != np.int16 or out.shape != vol.shape:
+        fail(f"engine output {out.dtype} {out.shape}")
+    return out, time.perf_counter() - t0
+
+
+def rate_rounds(engines: dict, vol, label: str) -> dict:
+    """slices/s of each engine, the median of 3 rounds that alternate them
+    (each warmed first)."""
+    for eng in engines.values():
+        serve(eng, vol)
+    rounds = {k: [] for k in engines}
+    for _ in range(3):
+        for name, eng in engines.items():
+            rounds[name].append(SLICES / serve(eng, vol)[1])
+    for name, rates in rounds.items():
+        log(f"engine {label} {name}: slices/s median "
+            f"{statistics.median(rates):.2f} rounds "
+            f"{[round(v, 2) for v in rates]} ({SLICES} x {SIZE}^2, chunk {N},"
+            f" incl. upload, postprocess, download)")
+    return {k: statistics.median(v) for k, v in rounds.items()}
+
+
+def agreement(label: str, got, ref, strict: bool) -> dict:
+    """Share of voxels within 1 stored unit and |dHU| mean / p99 / max;
+    ``strict`` (fp32 against fp32) fails below STORED_UNIT_SHARE, else a
+    mean above QUANT_MEAN_DHU_MAX fails (a wrong layout moves the output by
+    hundreds of HU)."""
+    d = np.abs(got.astype(np.int32) - ref.astype(np.int32))
+    share = float(np.mean(d <= 1))
+    mean, p99, mx = dhu_stats(got, ref)
+    log(f"{label}: |d|<=1 on {share:.6f} of voxels; |dHU| mean {mean:.4f} "
+        f"p99 {p99:.4f} max {mx:.1f}")
+    if strict and share < STORED_UNIT_SHARE:
+        fail(f"{label}: {share} < {STORED_UNIT_SHARE}")
+    if not strict and mean > QUANT_MEAN_DHU_MAX:
+        fail(f"{label}: mean |dHU| {mean} > {QUANT_MEAN_DHU_MAX}")
+    return dict(share=share, mean=mean, p99=p99, max=mx)
+
+
+def run_packed_engine_phase(k1, k2, k4, k7, dev, st, lung, records):
+    """Phase 4k: forward="packed" at every trunk (bf16), exact launch
+    counts, each against the module forward's run_patient; fp32 packed
+    chain3 against the fp32 module plain path; rates in alternating rounds
+    beside the module forward; one profiled patient."""
+    import torch
+
+    from ducosy_tpu_torch.infer.engine import DualGeneratorEngine
+
+    vol = chest_phantom(SLICES, SIZE, SEED)
+    n_gens = 2 * -(-SLICES // N)
+    engine = lambda dtype, **kw: DualGeneratorEngine(
+        st, lung, img_size=SIZE, compute_dtype=dtype, device=dev, **kw)
+    counters = packed_counters(k1, k2, k4, k7)
+    module = engine(torch.bfloat16, trunk="chain")
+    ref, _ = serve(module, vol)
+    engines = {"module chain": module}
+    launches = {}
+    for trunk in PACKED_TRUNKS:
+        eng = engines[f"packed {trunk}"] = engine(
+            torch.bfloat16, forward="packed", trunk=trunk)
+        serve(eng, vol)                       # warm-up: cuDNN autotune etc.
+        zero_counts(counters, k2)
+        out, _ = serve(eng, vol)              # the main path, counted
+        got = read_counts(counters, k2)
+        want = packed_launch_want(trunk, None, n_gens)
+        log(f"engine bf16 packed {trunk}: launches {got} (expected {want})")
+        if got != want:
+            fail(f"packed {trunk} launch counts {got} != {want}")
+        launches[trunk] = got
+        records[("packed_agreement", trunk)] = agreement(
+            f"engine bf16 packed {trunk} vs bf16 module chain", out, ref,
+            strict=False)
+    records["packed_launches"] = launches
+    out32, _ = serve(engine(torch.float32, forward="packed", trunk="chain3"),
+                     vol)
+    ref32, _ = serve(engine(torch.float32, trunk="plain"), vol)
+    records["packed_fp32"] = agreement(
+        "engine fp32 packed chain3 vs fp32 module plain", out32, ref32,
+        strict=True)
+    del out32, ref32
+    records["packed_slices_per_s"] = rate_rounds(engines, vol, "bf16")
+    rates = records["packed_slices_per_s"]
+    log(f"engine bf16 packed chain3 / module chain: "
+        f"{rates['packed chain3'] / rates['module chain']:.4f}")
+    records["packed_profile"] = profile_patient(
+        lambda: serve(engines["packed chain3"], vol), "packed chain3 bf16",
+        k2_launches=launches["chain3"]["instance_norm"])
+    del engines, module
+    torch.cuda.empty_cache()
+
+
+def run_packed_quant_phase(k1, k2, k4, k7, dev, st, lung, records):
+    """Phase 4kq: forward="packed" at quant="trunk" and "full" under chain3
+    and under xla (the XLA trunk's per-sample dynamic requant): exact
+    launch counts, raw and final taps against the bf16 module engine (phase
+    4q's bound), rates in alternating rounds."""
+    import torch
+
+    from ducosy_tpu_torch.infer.engine import DualGeneratorEngine
+
+    vol = chest_phantom(SLICES, SIZE, SEED)
+    n_gens = 2 * -(-SLICES // N)
+    engine = lambda **kw: DualGeneratorEngine(
+        st, lung, img_size=SIZE, compute_dtype=torch.bfloat16, device=dev,
+        **kw)
+    counters = packed_counters(k1, k2, k4, k7)
+    ref = engine(trunk="chain")
+    ref_out, _ = serve(ref, vol)
+    sub = vol[:N]
+    raw_ref = ref.generate_batch(sub, 1.0, -1024.0)
+    engines = {}
+    for trunk in ("chain3", "xla"):
+        for quant in ("trunk", "full"):
+            name = f"packed {trunk} quant={quant}"
+            eng = engines[name] = engine(forward="packed", trunk=trunk,
+                                         quant=quant)
+            serve(eng, vol)
+            zero_counts(counters, k2)
+            out, _ = serve(eng, vol)
+            got = read_counts(counters, k2)
+            want = packed_launch_want(trunk, quant, n_gens)
+            log(f"engine {name}: launches {got} (expected {want})")
+            if got != want:
+                fail(f"{name} launch counts {got} != {want}")
+            raw_q = eng.generate_batch(sub, 1.0, -1024.0)
+            if not all(np.isfinite(raw_q[k]).all() for k in raw_q):
+                fail(f"{name}: non-finite generate_batch output")
+            pick_ = lambda r: np.concatenate(
+                [r[k].ravel() for k in ("st_stored", "lung_stored")])
+            raw = dhu_stats(pick_(raw_q), pick_(raw_ref))
+            log(f"engine {name} vs bf16 module engine: raw tap "
+                f"(generate_batch st/lung stored, {N} slices) |dHU| mean "
+                f"{raw[0]:.4f} p99 {raw[1]:.4f} max {raw[2]:.1f}")
+            final = agreement(f"engine {name} vs bf16 module engine, final "
+                              "tap (run_patient)", out, ref_out, strict=False)
+            records[("packed_fidelity", trunk, quant)] = dict(raw=raw,
+                                                              final=final)
+    engines["module chain"] = ref
+    records["packed_quant_slices_per_s"] = rate_rounds(engines, vol, "bf16")
+    del engines, ref
+    torch.cuda.empty_cache()
+
+
+def run_nocbam_serving_phase(k1, k2, k4, k7, dev, records):
+    """Phase 8k: a seeded generator pair without CBAM (1 channel, base 64,
+    9 blocks) through the module forward (trunk "auto": plain), the module
+    forward with fused_norm (the 18 trunk norms on K2) and the packed
+    forward (its XLA trunk): exact launch counts, the series against the
+    plain module forward (fp32: 1 stored unit on 99.9%; bf16: |dHU|),
+    rates in alternating rounds."""
+    import torch
+
+    from ducosy_tpu_torch.infer.engine import DualGeneratorEngine
+    from ducosy_tpu_torch.models.convert import init_generator_state_dict
+
+    vol = chest_phantom(SLICES, SIZE, SEED)
+    n_gens = 2 * -(-SLICES // N)
+    st, lung = (init_generator_state_dict(SEED + s, use_cbam=False)
+                for s in (13, 14))
+    counters = packed_counters(k1, k2, k4, k7)
+    kinds = {"module plain": {}, "module fused_norm": {"fused_norm": True},
+             "packed": {"forward": "packed"}}
+    norm_launches = {"module plain": 0, "module fused_norm": 2 * BLOCKS,
+                     "packed": 0}
+    outs, engines = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:]
+        for name, kw in kinds.items():
+            eng = DualGeneratorEngine(st, lung, img_size=SIZE,
+                                      compute_dtype=dtype, device=dev, **kw)
+            serve(eng, vol)
+            zero_counts(counters, k2)
+            outs[(name, dname)], _ = serve(eng, vol)
+            got = read_counts(counters, k2)
+            want = {k: 0 for k in got}
+            want["instance_norm"] = norm_launches[name] * n_gens
+            log(f"engine no-CBAM {name} {dname}: launches {got} (expected "
+                f"{want})")
+            if got != want:
+                fail(f"no-CBAM {name} {dname} launch counts {got} != {want}")
+            if dtype == torch.bfloat16:
+                engines[name] = eng
+    for name in ("module fused_norm", "packed"):
+        for dname, strict in (("float32", True), ("bfloat16", False)):
+            records[("nocbam", name, dname)] = agreement(
+                f"engine no-CBAM {name} {dname} vs module plain {dname}",
+                outs[(name, dname)], outs[("module plain", dname)], strict)
+    records["nocbam_slices_per_s"] = rate_rounds(engines, vol,
+                                                 "no-CBAM bf16")
+    del engines, outs
+    torch.cuda.empty_cache()
+
+
+def run_packed_training_phase(k2, k4, tmp: Path, records):
+    """Phase 7k: phase 7's tree trained with gen_forward="packed" (CBAM
+    SOFT_TISSUE, batch 8, 512^2, bf16, remat off, TRAIN_STEPS steps + the
+    validation pass): finite losses, exact K2-K5 launches, s/step and peak
+    memory beside phase 7's tail run; then a SOFT_TISSUE range without
+    CBAM with fused_norm (trunk "plain": the 18 trunk norms on K2, K3 their
+    backward) for 3 steps: finite losses and exact K2/K3 launches."""
+    from ducosy_tpu_torch.cli import train
+    from ducosy_tpu_torch.config import (SOFT_TISSUE, ModelConfig,
+                                         TrainConfig, replace)
+    from ducosy_tpu_torch.train.loop import train_cycle_gan
+
+    counters = {"instance_norm": k2.instance_norm,
+                "instance_norm_bwd": k2.instance_norm_bwd,
+                "block_tail": k4.block_tail,
+                "block_tail_bwd": k4.block_tail_bwd}
+
+    def launches():
+        return {k: f.launches for k, f in counters.items()}
+
+    def check(label, out, secs, got, want, steps):
+        losses = {k: v for k, v in out.items() if k.startswith("loss")
+                  or k in ("contrast", "val_loss")}
+        if not all(np.isfinite(v) for v in losses.values()):
+            fail(f"{label}: non-finite losses {losses}")
+        if len(out["step_seconds"]) != steps or out["oom_fallback"]:
+            fail(f"{label}: {len(out['step_seconds'])} steps run, remat "
+                 f"fallback {out['oom_fallback']}")
+        med = statistics.median(out["step_seconds"][1:])
+        log(f"{label}: {steps} steps + validation in {secs:.1f} s; step "
+            f"seconds {[round(t, 4) for t in out['step_seconds']]}, median "
+            f"of steps 2-{steps} {med:.4f}; peak memory "
+            f"{out['peak_memory_bytes'] / 2**30:.2f} GiB; launches {got} "
+            f"(expected {want}); losses {losses}")
+        if got != want:
+            fail(f"{label} launch counts {got} != {want}")
+        return med
+
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    out = train.main([
+        "--data_root", str(Path(tmp, "data")), "--dataset_names", "Smoke",
+        "--training_dir", str(Path(tmp, "run_packed")),
+        "--img_size", str(SIZE), "--batch_size", str(TRAIN_N),
+        "--num_residual_blocks", str(BLOCKS), "--epochs", "1",
+        "--max_steps_per_epoch", str(TRAIN_STEPS), "--resume", "",
+        "--num_devices", "1", "--num_workers", "8",
+        "--gen_forward", "packed", "--remat", "off"])["soft_tissue"]
+    secs = time.perf_counter() - t0
+    # the packed "pallas" trunk: K2 and K4 once a block a forward, K3 and K5
+    # in each backward (6 forwards a step); validation runs the module
+    # forward's tail trunk, 2 x 6 forwards
+    fwd, val = 6 * BLOCKS * TRAIN_STEPS, 2 * 6 * BLOCKS
+    want = {"instance_norm": fwd + val, "instance_norm_bwd": fwd,
+            "block_tail": fwd + val, "block_tail_bwd": fwd}
+    med = check("training gen_forward=packed remat=off", out, secs,
+                launches(), want, TRAIN_STEPS)
+    tail = records.get("s_per_step", {}).get(("tail", "auto"))
+    log(f"training s/step packed {med:.4f} beside phase 7's tail "
+        f"{tail if tail is None else round(tail, 4)} (batch {TRAIN_N} x "
+        f"{SIZE}^2, bf16, {BLOCKS} blocks, SOFT_TISSUE)")
+    records["packed_train"] = dict(s_per_step=med,
+                                   peak=out["peak_memory_bytes"],
+                                   launches=launches())
+
+    steps = 3
+    for f in counters.values():
+        f.launches = 0
+    cfg = replace(TrainConfig(), data_root=str(Path(tmp, "data")),
+                  dataset_names="Smoke",
+                  training_dir=str(Path(tmp, "run_fused_norm")),
+                  img_size=SIZE, batch_size=TRAIN_N, epochs=1, resume="",
+                  num_workers=8, remat="off")
+    model = ModelConfig(num_residual_blocks=BLOCKS, fused_norm=True)
+    t0 = time.perf_counter()
+    out = train_cycle_gan(cfg, "soft_tissue", model,
+                          range_cfg=replace(SOFT_TISSUE, use_cbam=False),
+                          device="cuda", max_epochs=1,
+                          max_steps_per_epoch=steps)
+    secs = time.perf_counter() - t0
+    norms = 2 * BLOCKS                  # K2 a forward; K3 a backward
+    want = {"instance_norm": 6 * norms * steps + 2 * 6 * norms,
+            "instance_norm_bwd": 6 * norms * steps, "block_tail": 0,
+            "block_tail_bwd": 0}
+    med = check("training no-CBAM fused_norm remat=off", out, secs,
+                launches(), want, steps)
+    records["fused_norm_train"] = dict(s_per_step=med,
+                                       peak=out["peak_memory_bytes"],
+                                       launches=launches())
 
 
 def run_cli_phase(k1, k2, st, lung, flags=()):
@@ -3405,6 +3813,8 @@ def kernel_records(records) -> list:
     wts = 9 * c * c                              # one 3x3 kernel's elements
     k2_rec = lambda name: records[("k2", name, "bfloat16")]
     k2_launches = records["launches"]["instance_norm"]
+    k2p_launches = records["packed_launches"]["chain3"][
+        "instance_norm (phases > 1)"]
     tn = TRAIN_N
     t_in, t_pad = tn * hw * hw * c, tn * (hw + 2) ** 2 * c
     pm, pk, pn = PROBE_SHAPE
@@ -3443,9 +3853,20 @@ def kernel_records(records) -> list:
          records[("launches", "tail")]["instance_norm_int8"],
          records["k2_int8"], bound(inner + carry / 2, fp32=10 * inner / 2),
          None),
+        # K2p on the packed forward (phase 4k, chain3: the stem, up1 and up2
+        # norms of each generator call, one count for the three shapes)
         ("instance_norm (K2 phases=4)", "instance_norm.cu",
-         pallas + "instance_norm.py:206", 0, records[("k2p", "bfloat16")],
-         bound(4 * inner, fp32=8 * inner), None),
+         pallas + "instance_norm.py:206", k2p_launches,
+         records[("k2p", "bfloat16")], bound(4 * inner, fp32=8 * inner),
+         None),
+        ("instance_norm (K2 phases=4 at the packed stem)", "instance_norm.cu",
+         pallas + "instance_norm.py:206", k2p_launches,
+         records[("k2p", "stem", "bfloat16")],
+         records[("k2p", "stem", "bfloat16")]["bound"], None),
+        ("instance_norm (K2 phases=16 at the packed up2)", "instance_norm.cu",
+         pallas + "instance_norm.py:206", k2p_launches,
+         records[("k2p", "up2", "bfloat16")],
+         records[("k2p", "up2", "bfloat16")]["bound"], None),
         ("tap_probe (P3, int8, 9 taps)", "tap_probe.cu",
          "scripts/probe_int8_mosaic.py:38", p3_int8["launches"], p3_int8,
          bound(pm * pk + pk * pn + 4 * pm * pn, int8=2.0 * pm * pk * pn * 9),
@@ -3589,11 +4010,19 @@ def main() -> None:
     phase("4m", run_mega_engine_phase, k1, k2, k7, dev, st, lung, records)
     fast_series = phase("5", run_cli_phase, k1, k2, st, lung)
     phase("5q", run_cli_phase, k1, k2, st, lung, flags=("--quant", "trunk"))
+    phase("2k", check_k2p_packed, k2, dev, records)
+    phase("4k", run_packed_engine_phase, k1, k2, k4, k7, dev, st, lung,
+          records)
+    phase("4kq", run_packed_quant_phase, k1, k2, k4, k7, dev, st, lung,
+          records)
+    phase("8k", run_nocbam_serving_phase, k1, k2, k4, k7, dev, records)
     phase("6", check_training_kernels, k1, k2, k4, k7, dev, records)
     phase("6 parts", check_tail_parts, k1, k4, k7, dev, records)
     phase("6 parts K3", check_k3_parts, k2, dev, records)
     with tempfile.TemporaryDirectory() as run_dir:
         phase("7", run_training_phase, k2, k4, Path(run_dir), records)
+        phase("7k", run_packed_training_phase, k2, k4, Path(run_dir),
+              records)
         phase("8", run_masked_cli_phase, k1, k2, dev, Path(run_dir))
         phase("7r", run_resume_phase, k2, k4, dev, Path(run_dir), records)
         with tempfile.TemporaryDirectory() as gen_dir:

@@ -6,8 +6,11 @@ Trains the soft-tissue and/or lung CycleGAN with the fixed per-range HU,
 window and mask settings. Same flags as the JAX CLI, plus ``--device``
 (default ``cuda``; the run raises if no card is visible, ``--device cpu``
 runs the plain PyTorch path), ``--trunk`` (``tail``, the K2-K5 kernels, or
-``plain``), ``--remat``, ``--max_steps_per_epoch`` and the widths
-``--base_channels`` / ``--disc_base_channels``.
+``plain``; ``auto`` is ``tail``, or ``plain`` for a range without CBAM or
+with ``--fused_norm``), ``--gen_forward`` (``packed``: the space-to-depth
+forward), ``--fused_norm`` (the plain trunk's norms on K2/K3), ``--remat``,
+``--max_steps_per_epoch`` and the widths ``--base_channels`` /
+``--disc_base_channels``.
 
 ``--num_devices N`` trains data-parallel on the first N cards, one rank a
 card over NCCL (default: every visible card, as the JAX CLI's mesh; 1 with
@@ -56,8 +59,16 @@ def parse_args(argv=None):
     p.add_argument("--profile_dir", type=str, default="",
                    help="write a torch.profiler trace of a few early steps")
     p.add_argument("--device", type=str, default="cuda")
-    p.add_argument("--trunk", type=str, default="tail",
-                   choices=["tail", "plain"])
+    p.add_argument("--trunk", type=str, default="auto",
+                   choices=["auto", "tail", "plain"],
+                   help="the module forward's trunk (default: tail, or "
+                        "plain without CBAM or with --fused_norm)")
+    p.add_argument("--gen_forward", type=str, default="auto",
+                   choices=["auto", "module", "packed"],
+                   help="the train step's generator forward: the module "
+                        "forward (auto) or the space-to-depth packed one")
+    p.add_argument("--fused_norm", action="store_true",
+                   help="the plain trunk's 18 norms on K2 (backward K3)")
     p.add_argument("--remat", type=str, default="auto",
                    choices=["auto", "on", "off"])
     p.add_argument("--max_steps_per_epoch", type=int, default=None)
@@ -98,10 +109,12 @@ def _train(device: torch.device, args) -> dict:
         ncct_folder=args.ncct_folder, cect_folder=args.cect_folder,
         resume=args.resume, img_size=args.img_size,
         val_split=args.val_split, compute_dtype=args.compute_dtype,
-        profile_dir=args.profile_dir, remat=args.remat)
+        profile_dir=args.profile_dir, remat=args.remat,
+        gen_forward=args.gen_forward)
     model_cfg = ModelConfig(num_residual_blocks=args.num_residual_blocks,
                             base_channels=args.base_channels,
-                            disc_base_channels=args.disc_base_channels)
+                            disc_base_channels=args.disc_base_channels,
+                            fused_norm=args.fused_norm)
     os.makedirs(cfg.training_dir, exist_ok=True)
     targets = ["soft_tissue", "lung"] if args.target_model == "all" \
         else [args.target_model]

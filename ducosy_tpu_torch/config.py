@@ -76,8 +76,8 @@ class ModelConfig:
     cbam_spatial_kernel: int = 7
     disc_base_channels: int = 64
     output_channels: int = 1
-    # the JAX package's fused-InstanceNorm switch; the port's counterpart
-    # is the training CLI's --trunk tail|plain
+    # the trunk's 18 InstanceNorms on K2 (backward K3), the JAX package's
+    # fused-InstanceNorm switch; runs on the module forward's plain trunk
     fused_norm: bool = False
 
 
@@ -121,8 +121,8 @@ class TrainConfig:
     # "auto" tries without and falls back to remat when the step runs out
     # of device memory; "on"/"off" force it.
     remat: str = "auto"
-    # the JAX package's generator-forward switch (its packed space-to-depth
-    # forward is not ported; the port runs the module forward)
+    # the train step's generator forward: "packed" is the space-to-depth
+    # forward (models/fused.py); "auto" and "module" the module forward
     gen_forward: str = "auto"
     # the JAX package's profiler-trace window (unused by the port)
     profile_dir: str = ""

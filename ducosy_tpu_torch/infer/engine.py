@@ -32,18 +32,30 @@ as int8; ``prefetch_masks`` starts that in a background thread so the next
 patient's masks overlap this patient's device work. One model may be
 mask-conditioned and the other not.
 
-``trunk`` picks the generator's trunk: "chain" (K1, the default), "mega"
-(K7 + K8 per block), "tail" (the training trunk) or "plain".
+``forward`` picks the generator forward, as the JAX engine's
+(ducosy_tpu/infer/engine.py:44-222): "module" (the default; "auto" is
+"module") runs ``models.generator.Generator``, "packed" the space-to-depth
+forward of ``models/fused.py`` with its weights laid out once a device.
+``trunk`` under "module": "chain" (K1), "mega" (K7 + K8 per block), "tail"
+(the training trunk) or "plain"; "auto" (the default) is "chain", or
+"plain" for a checkpoint without CBAM or with ``fused_norm`` (the 18 trunk
+norms on K2). Under "packed" it takes the JAX names: "xla", "pallas",
+"mega", "mono", "chain{k}", and "auto", which is "chain3" on a card ("mono"
+below 3 blocks) and the XLA trunk on the CPU; a checkpoint without CBAM
+runs the XLA trunk. A trunk that contains the CBAM gates refuses a
+checkpoint without them, a JAX trunk name needs forward="packed", as the
+JAX engine refuses them; ``fused_norm`` is read by the module forward only.
 
 bf16 is the serving default; fp32 is the parity mode and switches cuDNN
 and matmul TF32 off (process-wide) so fp32 means fp32.
 
 ``quant="trunk"|"full"`` (``trunk_int8=True`` is "trunk") is quantized
-serving, as the JAX engine's (ducosy_tpu/infer/engine.py:158-179). The JAX
-package runs it in its packed (space-to-depth) forward only; the port has
-no packed forward (``forward="packed"`` raises), so the quantized modes
-live in its single true-layout forward (models/generator.py), with the
-int8 weights quantized once from the state dict's fp32 values.
+serving, as the JAX engine's (ducosy_tpu/infer/engine.py:158-179): in the
+packed forward as the JAX package runs it (the XLA trunk's convs by
+per-sample dynamic requantization), and in the true-layout module forward
+(models/generator.py), which the JAX engine refuses and the port keeps for
+CBAM checkpoints. The int8 weights are quantized once from the state
+dict's fp32 values.
 """
 from __future__ import annotations
 
@@ -61,7 +73,12 @@ from ducosy_tpu_torch.device import require_cuda
 from ducosy_tpu_torch.infer.synthesis import composite_volume, \
     synthesize_volume
 from ducosy_tpu_torch.masks import generate_anatomical_masks
-from ducosy_tpu_torch.models.convert import load_torch_state_dict
+from ducosy_tpu_torch.models.convert import (
+    load_torch_state_dict,
+    state_dict_blocks,
+    state_dict_has_cbam,
+)
+from ducosy_tpu_torch.models.fused import PackedGenerator
 from ducosy_tpu_torch.models.generator import Generator
 from ducosy_tpu_torch.ops import hu
 from ducosy_tpu_torch.ops.quant import INT8_NORM_SCALE, check_quant
@@ -82,9 +99,10 @@ class DualGeneratorEngine:
                  lung_range: RangeConfig = LUNG, img_size: int = 512,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  device: str | torch.device | None = None,
-                 trunk: str = "chain", forward: str = "module",
+                 trunk: str = "auto", forward: str = "module",
                  quant: str | None = None, trunk_int8: bool = False,
-                 soft_squeeze: bool = False, mesh=None):
+                 soft_squeeze: bool = False, mesh=None,
+                 fused_norm: bool = False):
         # device: default "cuda", or the mesh's first device, which a
         # device named beside a mesh must agree with
         if mesh is None:
@@ -99,11 +117,6 @@ class DualGeneratorEngine:
                 raise ValueError(f"device={named} disagrees with the mesh's "
                                  f"first device {first}")
         self.device = self.mesh[0]
-        if forward != "module":
-            raise NotImplementedError(
-                f"forward={forward!r}: the space-to-depth packed forward is "
-                "not ported (ROADMAP.md Queue 1, the packed and fused "
-                "forwards)")
         if quant is None and trunk_int8:
             quant = "trunk"
         self.quant = check_quant(quant)
@@ -134,9 +147,20 @@ class DualGeneratorEngine:
             torch.backends.cuda.matmul.allow_tf32 = False
         self.st_range, self.lung_range = st_range, lung_range
         self.img_size = img_size
+        self.forward_impl, self.trunk = self._resolve(
+            forward, trunk, (st_sd, lung_sd), img_size)
+        self.fused_norm = fused_norm
 
         def build(sd, device):
-            gen = Generator.from_state_dict(sd, trunk=trunk, quant=quant)
+            if self.forward_impl == "packed":
+                return PackedGenerator(sd, dtype=compute_dtype, device=device,
+                                       trunk=self.trunk, quant=quant)
+            gen_trunk = self.trunk
+            if gen_trunk == "auto":
+                gen_trunk = "chain" if state_dict_has_cbam(sd) and \
+                    not fused_norm else "plain"
+            gen = Generator.from_state_dict(sd, trunk=gen_trunk, quant=quant,
+                                            fused_norm=fused_norm)
             gen = gen.to(device=device, dtype=compute_dtype)
             gen = gen.to(memory_format=torch.channels_last)
             return gen.eval().requires_grad_(False)
@@ -145,6 +169,33 @@ class DualGeneratorEngine:
         self.replicas = [(build(st_sd, d), build(lung_sd, d))
                          for d in self.mesh]
         self.st_generator, self.lung_generator = self.replicas[0]
+
+    def _resolve(self, forward: str, trunk: str, sds, img_size: int):
+        """(forward, trunk) as the JAX engine resolves and refuses them
+        (ducosy_tpu/infer/engine.py:150-222); "auto" under "module" is
+        resolved per generator in ``build``."""
+        if forward == "auto":
+            forward = "module"
+        if forward not in ("module", "packed"):
+            raise ValueError(f"forward must be 'module', 'packed' or 'auto': "
+                             f"{forward!r}")
+        cbam = all(state_dict_has_cbam(sd) for sd in sds)
+        if forward == "module":
+            if trunk in ("xla", "pallas", "mono") or (
+                    trunk.startswith("chain") and trunk != "chain"):
+                raise ValueError(f"trunk={trunk!r} requires the packed "
+                                 f"forward (got forward={forward!r})")
+            return forward, trunk
+        if img_size % 4:
+            raise ValueError(f"forward='packed' needs img_size divisible by "
+                             f"4, got {img_size}")
+        if trunk == "auto" and self.device.type == "cuda":
+            blocks = min(state_dict_blocks(sd) for sd in sds)
+            trunk = "chain3" if blocks >= 3 else "mono"
+        elif trunk not in ("auto", "xla") and not cbam:
+            raise ValueError(f"trunk={trunk!r} needs CBAM checkpoints (the "
+                             "fused trunk kernels include the CBAM gates)")
+        return forward, trunk
 
     @classmethod
     def from_torch_checkpoints(cls, st_path: str, lung_path: str, **kw):

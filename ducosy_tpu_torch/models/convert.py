@@ -59,6 +59,16 @@ def num_residual_blocks(params: Dict[str, Any]) -> int:
     return max(blocks) + 1 if blocks else 0
 
 
+def state_dict_blocks(sd) -> int:
+    """Residual blocks of a reference-layout generator state dict."""
+    return len({k.split(".")[1] for k in sd if ".block.1.weight" in k})
+
+
+def state_dict_has_cbam(sd) -> bool:
+    """Whether a reference-layout generator state dict has CBAM blocks."""
+    return any(".cbam." in k for k in sd)
+
+
 def generator_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
     """JAX Generator params (numpy or array leaves) -> the port's state dict
     (numpy values, reference key layout)."""
@@ -88,9 +98,10 @@ def generator_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, np.ndarra
     return sd
 
 
-def generator_shapes(in_ch: int = 1, base: int = 64,
-                     blocks: int = 9) -> Dict[str, tuple]:
-    """State-dict key -> shape for a CBAM generator, in module order."""
+def generator_shapes(in_ch: int = 1, base: int = 64, blocks: int = 9,
+                     use_cbam: bool = True) -> Dict[str, tuple]:
+    """State-dict key -> shape for a generator, in module order; without
+    ``use_cbam`` the blocks have no ``cbam.*`` keys."""
     c = 4 * base
     r = c // 16
     shapes: Dict[str, tuple] = {}
@@ -106,6 +117,8 @@ def generator_shapes(in_ch: int = 1, base: int = 64,
         b = f"model.{10 + i}"
         conv(f"{b}.block.1", c, c, 3)
         conv(f"{b}.block.5", c, c, 3)
+        if not use_cbam:
+            continue
         shapes[f"{b}.cbam.channel_attention.fc.0.weight"] = (r, c, 1, 1)
         shapes[f"{b}.cbam.channel_attention.fc.2.weight"] = (c, r, 1, 1)
         shapes[f"{b}.cbam.spatial_attention.conv.weight"] = (1, 2, 7, 7)
@@ -116,11 +129,14 @@ def generator_shapes(in_ch: int = 1, base: int = 64,
 
 
 def init_generator_state_dict(seed: int, in_ch: int = 1, base: int = 64,
-                              blocks: int = 9) -> Dict[str, np.ndarray]:
-    """Seeded random CBAM generator in numpy: every weight N(0, 0.02),
-    every bias zero (ducosy_tpu/models/layers.py:45-48). Needs neither JAX
-    nor a checkpoint file."""
-    return _normal_init(seed, generator_shapes(in_ch, base, blocks))
+                              blocks: int = 9, use_cbam: bool = True
+                              ) -> Dict[str, np.ndarray]:
+    """Seeded random generator in numpy (with CBAM unless ``use_cbam`` is
+    off): every weight N(0, 0.02), every bias zero
+    (ducosy_tpu/models/layers.py:45-48). Needs neither JAX nor a
+    checkpoint file."""
+    return _normal_init(seed, generator_shapes(in_ch, base, blocks,
+                                               use_cbam))
 
 
 DISC_IDX = {"conv1": 0, "conv2": 2, "conv3": 5, "conv4": 8, "head": 12}

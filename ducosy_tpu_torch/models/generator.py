@@ -34,7 +34,15 @@ TPU-kernel sites to the hand-written kernels:
                  K4/K5 tail on the padded carry (x_pad 1, pad 1, pad 0 on
                  the last block).
   trunk="plain"  no kernel wrapper anywhere: the reference module math
-                 with every conv bias, in plain PyTorch.
+                 with every conv bias, in plain PyTorch. The only trunk of a
+                 generator without CBAM (``use_cbam=False``: each block is
+                 x + IN(conv2(pad(ReLU(IN(conv1(pad(x))))))), as
+                 ducosy_tpu/models/generator.py:95-108); the others contain
+                 the CBAM gates and refuse one. ``fused_norm`` sends its 18
+                 trunk norms through the differentiable K2/K3 (ReLU, pad 0
+                 for each block's first; no ReLU for its second), the JAX
+                 ``Generator(fused_norm=True)`` (generator.py:31-39),
+                 with or without CBAM.
 
 ``quant`` (inference only) is quantized serving on this true layout, the
 JAX packed forward's ``quant`` modes (models/fused.py:510-519) without its
@@ -70,14 +78,20 @@ import numpy as np
 import torch
 from torch import nn
 
+from ducosy_tpu_torch.models.convert import state_dict_blocks, \
+    state_dict_has_cbam
+from ducosy_tpu_torch.models.fused import (
+    trunk_chain,
+    trunk_mega,
+    trunk_pallas,
+    trunk_plain,
+)
 from ducosy_tpu_torch.models.layers import (
     conv2d,
     instance_norm,
     reflect_pad,
     upsample_nearest_2x,
 )
-from ducosy_tpu_torch.ops.kernels import block_tail as k4
-from ducosy_tpu_torch.ops.kernels import conv_in as k7
 from ducosy_tpu_torch.ops.kernels import instance_norm as k2
 from ducosy_tpu_torch.ops.kernels import residual_chain as k1
 from ducosy_tpu_torch.ops.quant import (
@@ -120,15 +134,16 @@ class _CBAM(nn.Module):
 
 class ResidualBlock(nn.Module):
     """Parameter holder with the reference block's key layout
-    (``block.1``/``block.5`` convs, ``cbam.*``)."""
+    (``block.1``/``block.5`` convs, ``cbam.*`` with ``use_cbam``)."""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, use_cbam: bool = True):
         super().__init__()
         self.block = nn.Sequential(
             nn.ReflectionPad2d(1), nn.Conv2d(c, c, 3), nn.InstanceNorm2d(c),
             nn.ReLU(), nn.ReflectionPad2d(1), nn.Conv2d(c, c, 3),
             nn.InstanceNorm2d(c))
-        self.cbam = _CBAM(c)
+        if use_cbam:
+            self.cbam = _CBAM(c)
 
 
 class Generator(nn.Module):
@@ -139,11 +154,26 @@ class Generator(nn.Module):
     def __init__(self, input_channels: int = 1, num_residual_blocks: int = 9,
                  base_channels: int = 64, trunk: str = "chain",
                  compute_dtype: torch.dtype | None = None,
-                 quant: str | None = None):
+                 quant: str | None = None, use_cbam: bool = True,
+                 fused_norm: bool = False):
         super().__init__()
         if trunk not in TRUNKS:
             raise ValueError(f"trunk must be one of {TRUNKS}: {trunk!r}")
+        if not use_cbam and trunk != "plain":
+            raise ValueError(f"trunk={trunk!r} needs CBAM checkpoints (its "
+                             "kernels include the CBAM gates); a generator "
+                             "without CBAM runs trunk='plain'")
+        if fused_norm and trunk != "plain":
+            raise ValueError(f"fused_norm runs the trunk norms of "
+                             f"trunk='plain' through K2, not trunk={trunk!r}")
+        if quant and not use_cbam:
+            raise ValueError("quant on a generator without CBAM runs on the "
+                             "packed forward's XLA trunk (forward='packed')")
+        if quant and fused_norm:
+            raise ValueError("fused_norm has no quantized mode; the quant "
+                             "modes run on the packed forward")
         self.trunk = trunk
+        self.use_cbam, self.fused_norm = use_cbam, fused_norm
         self.quant = check_quant(quant)
         self.qweights: Dict[str, tuple] = {}
         self.compute_dtype = compute_dtype
@@ -156,7 +186,7 @@ class Generator(nn.Module):
             nn.InstanceNorm2d(2 * b), nn.ReLU(),
             nn.Conv2d(2 * b, c, 3, stride=2, padding=1),
             nn.InstanceNorm2d(c), nn.ReLU(),
-            *[ResidualBlock(c) for _ in range(r)],
+            *[ResidualBlock(c, use_cbam) for _ in range(r)],
             nn.Upsample(scale_factor=2), nn.Conv2d(c, 2 * b, 3, padding=1),
             nn.InstanceNorm2d(2 * b), nn.ReLU(),
             nn.Upsample(scale_factor=2), nn.Conv2d(2 * b, b, 3, padding=1),
@@ -164,23 +194,25 @@ class Generator(nn.Module):
             nn.ReflectionPad2d(3), nn.Conv2d(b, 1, 7), nn.Tanh())
 
     @classmethod
-    def from_state_dict(cls, sd: Dict[str, torch.Tensor], trunk: str = "chain",
+    def from_state_dict(cls, sd: Dict[str, torch.Tensor],
+                        trunk: str | None = None,
                         compute_dtype: torch.dtype | None = None,
-                        quant: str | None = None):
+                        quant: str | None = None, fused_norm: bool = False):
         """Build a generator shaped like ``sd`` (reference key layout) and
-        load it strictly. Depth and width come from the state dict itself;
-        values may be tensors or numpy arrays. With ``quant``, the int8
-        weights are quantized from the loaded values."""
+        load it strictly. Depth, width and CBAM come from the state dict
+        itself; values may be tensors or numpy arrays. ``trunk`` None is
+        "chain" with CBAM and "plain" without (or with ``fused_norm``).
+        With ``quant``, the int8 weights are quantized from the loaded
+        values."""
         sd = {k: v if isinstance(v, torch.Tensor) else
               torch.from_numpy(np.array(v)) for k, v in sd.items()}
         stem = sd["model.1.weight"]
-        r = len({k.split(".")[1] for k in sd if ".block.1.weight" in k})
-        if r and not any(".cbam." in k for k in sd):
-            raise NotImplementedError(
-                "residual blocks without CBAM are not ported (ROADMAP.md "
-                "Queue 1, item 2); the released checkpoints all use CBAM")
+        r = state_dict_blocks(sd)
+        use_cbam = not r or state_dict_has_cbam(sd)
+        if trunk is None:
+            trunk = "chain" if use_cbam and not fused_norm else "plain"
         gen = cls(int(stem.shape[1]), r, int(stem.shape[0]), trunk,
-                  compute_dtype, quant)
+                  compute_dtype, quant, use_cbam, fused_norm)
         gen.load_state_dict(sd)
         if quant:
             gen.quantize_weights()
@@ -212,10 +244,10 @@ class Generator(nn.Module):
                          for k, v in self.qweights.items()}
         return self
 
-    def _trunk_weights(self, lo: int, hi: int):
-        """JAX-layout stacks for blocks lo..hi-1: conv HWIO (k,3,3,C,C) x2,
+    def _trunk_weights(self):
+        """JAX-layout stacks of the k blocks: conv HWIO (k,3,3,C,C) x2,
         fc1 (k,C,R), fc2 (k,R,C), spatial (k,7,7,2,1), conv biases (k,C) x2."""
-        blocks = [self.model[10 + i] for i in range(lo, hi)]
+        blocks = [self.model[10 + i] for i in range(self.num_residual_blocks)]
         hwio = lambda w: w.permute(2, 3, 1, 0)
 
         def stack(fn):
@@ -229,50 +261,23 @@ class Generator(nn.Module):
                 stack(lambda b: b.block[1].bias),
                 stack(lambda b: b.block[5].bias))
 
-    def _trunk_tail(self, hp: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-        """The training trunk on the reflect-padded carry hp; under quant,
-        K2's int8 write feeds an int8 conv2."""
-        r = self.num_residual_blocks
-        for i in range(r):
+    def _blocks(self, dt: torch.dtype) -> list:
+        """Per block (conv1 OIHW, bias, conv2 OIHW, bias) in ``dt``, then
+        the CBAM gates (fc1 (C, R), fc2 (R, C), wsa HWIO) if it has them:
+        the trunk functions' ``blocks`` (models/fused.py)."""
+        out = []
+        for i in range(self.num_residual_blocks):
             blk = self.model[10 + i]
             c1, c2 = blk.block[1], blk.block[5]
-            fc = blk.cbam.channel_attention.fc
-            t = conv2d(hp, c1.weight.to(dt), c1.bias.to(dt))
-            if self.quant:
-                wq, ws = self.qweights["conv2"]
-                t8 = k2.instance_norm_int8(t.contiguous(), pad=1)
-                t = conv_int8_static(t8, wq[i], ws[i], c2.bias,
-                                     INT8_NORM_SCALE, dtype=dt,
-                                     zero_point=INT8_ZERO_POINT)
-            else:
-                t = k2.instance_norm_fused(t, relu=True, pad=1)
-                t = conv2d(t, c2.weight.to(dt), c2.bias.to(dt))
-            hp = k4.block_tail_fused(
-                t, hp, fc[0].weight[:, :, 0, 0].T, fc[2].weight[:, :, 0, 0].T,
-                blk.cbam.spatial_attention.conv.weight.permute(2, 3, 1, 0),
-                pad=0 if i == r - 1 else 1, x_pad=1)
-        return hp
-
-    def _trunk_mega(self, hp: torch.Tensor) -> torch.Tensor:
-        """K7 then K8 per block on the reflect-padded carry hp; under quant,
-        K7 writes int8 and K8's taps run on the build-time int8 conv2."""
-        r, quant = self.num_residual_blocks, bool(self.quant)
-        was, wbs, w1s, w2s, wsas = self._trunk_weights(0, r)[:5]
-        ws = [None] * r
-        if quant:
-            wbs, ws = self.qweights["conv2"]
-        n, hh, ww, c = hp.shape
-        # per route: no fp32 accumulator where K7 and K8 run resident
-        scratch = k7.make_scratch(n, hh - 2, ww - 2, c, hp.device, hp.dtype) \
-            if hp.device.type == "cuda" else None
-        for i in range(r):
-            t = k7.conv3x3_in(hp, was[i], pad=1, scratch=scratch,
-                              int8_scale=INT8_NORM_SCALE if quant else None)
-            hp = k7.conv_block_tail(t, hp, wbs[i], w1s[i], w2s[i], wsas[i],
-                                    pad=0 if i == r - 1 else 1, x_pad=1,
-                                    in_int8=quant, w_scale=ws[i],
-                                    scratch=scratch)
-        return hp
+            b = (c1.weight.to(dt), c1.bias.to(dt), c2.weight.to(dt),
+                 c2.bias.to(dt))
+            if self.use_cbam:
+                fc = blk.cbam.channel_attention.fc
+                b += (fc[0].weight[:, :, 0, 0].T, fc[2].weight[:, :, 0, 0].T,
+                      blk.cbam.spatial_attention.conv.weight
+                      .permute(2, 3, 1, 0))
+            out.append(b)
+        return out
 
     def _norm_relu(self, h: torch.Tensor) -> torch.Tensor:
         """IN + ReLU of an encoder/decoder activation: K2 on the serving
@@ -318,26 +323,21 @@ class Generator(nn.Module):
         if chain or mega:
             # the down2 norm also writes the trunk's first reflect pad
             h = k2.instance_norm(h.contiguous(), relu=True, pad=1)
+        int8 = self.qweights["conv2"] if quant else None
         if mega:
-            h = self._trunk_mega(h)
+            h = trunk_mega(h, self._trunk_weights()[:5], int8)
         elif chain:
-            step = CHAIN_K if r >= CHAIN_K else 1
-            for lo in range(0, r, step):
-                hi = min(lo + step, r)
-                was, wbs, w1s, w2s, wsas = self._trunk_weights(lo, hi)[:5]
-                qkw = {}
-                if quant:
-                    wq, ws = self.qweights["conv2"]
-                    wbs, qkw = wq[lo:hi], dict(quant=True,
-                                               wb_scales=ws[lo:hi])
-                h = k1.residual_chain(h, was, wbs, w1s, w2s, wsas,
-                                      pad=0 if hi == r else 1, **qkw)
+            h = trunk_chain(h, self._trunk_weights()[:5],
+                            CHAIN_K if r >= CHAIN_K else 1, int8)
+        elif not self.use_cbam or self.fused_norm:
+            h = trunk_plain(torch.relu(instance_norm(h)), self._blocks(dt),
+                            fused_norm=self.fused_norm)
         else:
             h = reflect_pad(torch.relu(instance_norm(h)), 1)
             if self.trunk == "tail":
-                h = self._trunk_tail(h, dt)
+                h = trunk_pallas(h, self._blocks(dt), int8)
             else:
-                was, wbs, w1s, w2s, wsas, b1s, b2s = self._trunk_weights(0, r)
+                was, wbs, w1s, w2s, wsas, b1s, b2s = self._trunk_weights()
                 qkw = {}
                 if quant:
                     wbs, ws = self.qweights["conv2"]

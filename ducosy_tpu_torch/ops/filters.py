@@ -73,6 +73,18 @@ def gaussian_filter_3d(vol: torch.Tensor, sigmas, truncate: float = 4.0):
     return out
 
 
+def gaussian_blur_hw(x_nhwc: torch.Tensor, sigma: float,
+                     truncate: float = 4.0) -> torch.Tensor:
+    """Gaussian blur over H and W of an NHWC tensor, scipy's 'reflect'
+    boundary (ducosy_tpu/ops/filters.py:231-236)."""
+    if sigma <= 0:
+        return x_nhwc
+    for axis in (1, 2):
+        m = _gaussian_matrix(int(x_nhwc.shape[axis]), float(sigma), truncate)
+        x_nhwc = _apply_axis_matrix(x_nhwc, m, axis)
+    return x_nhwc
+
+
 # ------------------------------------------------------------ loss filters
 def _toeplitz_zero(n: int, kernel: tuple) -> np.ndarray:
     """(n, n) correlation operator with zero boundary padding of k//2

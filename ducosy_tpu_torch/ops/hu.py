@@ -27,6 +27,17 @@ def stored_to_hu(stored, slope, intercept):
     return stored.to(torch.float32) * slope + intercept
 
 
+def hu_transform(stored, slope, intercept, hu_min, hu_max,
+                 use_soft_squeezing=True):
+    """Stored pixels -> HU clipped to the window -> [-1, 1], soft-squeezed
+    or linear (ducosy_tpu/ops/hu.py:40-52)."""
+    image = torch.clamp(stored_to_hu(stored, slope, intercept), hu_min,
+                        hu_max)
+    if use_soft_squeezing:
+        return soft_squeeze(image, hu_min, hu_max)
+    return 2.0 * (image - hu_min) / (hu_max - hu_min) - 1.0
+
+
 def normalize_window(hu, hu_min, hu_max):
     """HU clipped to the window and mapped linearly to [-1, 1]."""
     clipped = torch.clamp(hu, hu_min, hu_max)
@@ -41,6 +52,14 @@ def denormalize_to_hu(x, hu_min, hu_max):
 def hu_to_stored(hu, slope, intercept):
     """HU -> stored pixel value; the caller casts to the DICOM dtype."""
     return (hu - intercept) / slope
+
+
+def preprocess_dual(stored, slope, intercept, st_range, lung_range):
+    """Stored pixels -> the (soft-tissue, lung) linear window inputs, no
+    squeeze: the inference-time preprocess (ducosy_tpu/ops/hu.py:84-93)."""
+    hu = stored_to_hu(stored, slope, intercept)
+    return (normalize_window(hu, st_range.hu_min, st_range.hu_max),
+            normalize_window(hu, lung_range.hu_min, lung_range.hu_max))
 
 
 def apply_windowing(x, hu_min, hu_max, window_center, window_width):

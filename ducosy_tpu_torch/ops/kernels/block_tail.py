@@ -96,12 +96,18 @@ def block_tail_plain(h, x, w1, w2, wsa, *, pad: int, x_pad: int,
     if x_pad:
         x = x[:, x_pad:-x_pad, x_pad:-x_pad, :]
     y, _ = _normalize(h, eps)
+    return reflect_pad(x + cbam_plain(y, w1, w2, wsa), pad)
+
+
+def cbam_plain(y, w1, w2, wsa):
+    """The CBAM gates of a normalized NHWC y (modules/model.py:6-52): the
+    channel gate, then the 7x7 spatial gate, in plain PyTorch."""
     gate_c = _channel_gate(y, w1, w2)[-1]
     t = y * gate_c.to(y.dtype)[:, None, None, :]
     z = F.conv2d(_spatial_stat(t), hwio_to_oihw(wsa.to(torch.float32)),
                  padding=SA_KERNEL // 2)
     gate_s = torch.sigmoid(z).permute(0, 2, 3, 1).to(t.dtype)
-    return reflect_pad(x + t * gate_s, pad)
+    return t * gate_s
 
 
 def _spatial_adjoint(stat, dgs, wsa):

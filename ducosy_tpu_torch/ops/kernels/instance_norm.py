@@ -260,10 +260,12 @@ def instance_norm(x: torch.Tensor, *, relu: bool = False, pad: int = 0,
                       device=x.device)
     _launch(x, out, relu, pad, phases, 0.0, eps)
     instance_norm.launches += 1
+    instance_norm.phase_launches += phases > 1
     return out
 
 
 instance_norm.launches = 0
+instance_norm.phase_launches = 0    # those of them with phases > 1 (K2p)
 
 
 def instance_norm_int8(x: torch.Tensor, *, pad: int = 0,

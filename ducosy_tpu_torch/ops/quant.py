@@ -71,17 +71,22 @@ def quantize_shifted(y: torch.Tensor, scale: float = INT8_NORM_SCALE):
 
 
 def in_relu_int8(x: torch.Tensor, *, pad: int = 0,
-                 scale: float = INT8_NORM_SCALE,
+                 scale: float = INT8_NORM_SCALE, phases: int = 1,
                  eps: float = EPS_INSTANCE_NORM) -> torch.Tensor:
     """IN (fp32 centred statistics) + ReLU of an NHWC tensor, reflect-padded
-    by ``pad``, on the shifted grid, quantized from the fp32 value: the
-    true-layout ``packed_in_relu_int8`` (fused.py:154-172) and K1q's write
-    of its intermediate (conv_in.py:380-386)."""
+    by ``pad``, on the shifted grid, quantized from the fp32 value:
+    ``packed_in_relu_int8`` (fused.py:154-172, statistics pooled over the
+    ``phases`` groups of a packed channel axis, channel = phase * C + c)
+    and K1q's write of its intermediate (conv_in.py:380-386)."""
+    n, h, w, cf = x.shape
     x32 = x.to(torch.float32)
-    xc = x32 - x32.mean(dim=(1, 2), keepdim=True)
-    y = torch.relu(xc * torch.rsqrt(xc.square().mean(dim=(1, 2), keepdim=True)
+    dims = (1, 2)
+    if phases > 1:
+        x32, dims = x32.reshape(n, h, w, phases, cf // phases), (1, 2, 3)
+    xc = x32 - x32.mean(dim=dims, keepdim=True)
+    y = torch.relu(xc * torch.rsqrt(xc.square().mean(dim=dims, keepdim=True)
                                     + eps))
-    return quantize_shifted(reflect_pad(y, pad), scale)
+    return quantize_shifted(reflect_pad(y.reshape(n, h, w, cf), pad), scale)
 
 
 def pad_shifted(x8: torch.Tensor, pad: int) -> torch.Tensor:
@@ -140,6 +145,24 @@ def conv_int8_static(x8, wq, ws, bias, act_scale: float, *, stride: int = 1,
     value); wq (kh, kw, Cin, Cout) int8, ws (Cout,) fp32."""
     return dequantize(int_conv(x8, wq, stride), wq, ws, bias, act_scale,
                       dtype=dtype, zero_point=zero_point)
+
+
+def conv_int8_dynamic(x, wq, ws, bias) -> torch.Tensor:
+    """``_conv_int8`` (fused.py:86-112), the XLA trunk's int8 conv: each
+    sample's activations quantized symmetrically at that sample's own amax
+    (scale max(amax, 1e-12) / 127 over H, W, C; round half to even, as
+    ``jnp.round``), per-output-channel int8 weights ``wq`` (kh, kw, Cin,
+    Cout) with fp32 scales ``ws``, the exact int32 VALID conv of the
+    pre-padded x, dequantized in fp32 before the bias, cast to x's dtype.
+    The scale is per sample, never over the batch."""
+    x32 = x.to(torch.float32)
+    xs = torch.clamp_min(x32.abs().amax(dim=(1, 2, 3), keepdim=True),
+                         1e-12) / 127.0
+    xq = torch.round(x32 / xs).to(torch.int8)
+    y = int_conv(xq, wq).to(torch.float32) * (xs * ws.reshape(1, 1, 1, -1))
+    if bias is not None:
+        y = y + bias.to(torch.float32)
+    return y.to(x.dtype)
 
 
 def subpixel_weights(w: torch.Tensor) -> torch.Tensor:

@@ -18,13 +18,13 @@ import torch
 
 
 @lru_cache(maxsize=32)
-def _linear_weight_matrix(in_size: int, out_size: int) -> np.ndarray:
-    """(out, in) weights of jax's 'linear' resize with antialias=True,
-    computed in float32 as jax computes them. Callers must not modify the
-    cached array."""
+def _linear_weight_matrix(in_size: int, out_size: int,
+                          antialias: bool = True) -> np.ndarray:
+    """(out, in) weights of jax's 'linear' resize, computed in float32 as
+    jax computes them. Callers must not modify the cached array."""
     f32 = np.float32
     inv_scale = f32(1.0 / (out_size / in_size))
-    kernel_scale = max(inv_scale, f32(1.0))
+    kernel_scale = max(inv_scale, f32(1.0)) if antialias else f32(1.0)
     sample = (np.arange(out_size, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
     x = np.abs(sample[None, :] - np.arange(in_size, dtype=f32)[:, None])
     w = np.maximum(f32(0.0), f32(1.0) - x / kernel_scale)     # (in, out)
@@ -36,16 +36,29 @@ def _linear_weight_matrix(in_size: int, out_size: int) -> np.ndarray:
     return np.ascontiguousarray(w.T).astype(f32)
 
 
-def resize_hw(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+def resize_hw(x: torch.Tensor, out_h: int, out_w: int, *,
+              antialias: bool = True) -> torch.Tensor:
     """Resize the trailing two dims (..., H, W) of a float tensor; axes whose
     size does not change are left untouched, as jax does."""
     h, w = x.shape[-2:]
     dt = x.dtype
     x = x.to(torch.float32)
     if h != out_h:
-        mh = torch.from_numpy(_linear_weight_matrix(h, out_h)).to(x.device)
-        x = torch.matmul(mh, x)
+        mh = torch.from_numpy(_linear_weight_matrix(h, out_h, antialias))
+        x = torch.matmul(mh.to(x.device), x)
     if w != out_w:
-        mw = torch.from_numpy(_linear_weight_matrix(w, out_w)).to(x.device)
-        x = torch.matmul(x, mw.T)
+        mw = torch.from_numpy(_linear_weight_matrix(w, out_w, antialias))
+        x = torch.matmul(x, mw.to(x.device).T)
     return x.to(dt)
+
+
+def resize_nhwc(x: torch.Tensor, out_h: int, out_w: int, *,
+                antialias: bool = True,
+                method: str = "linear") -> torch.Tensor:
+    """Resize an NHWC (or HWC) tensor on its H, W axes
+    (ducosy_tpu/ops/resize.py:26-31); ``method`` "linear" (or "bilinear",
+    jax's name for the same kernel) only."""
+    if method not in ("linear", "bilinear"):
+        raise ValueError(f"resize_nhwc: method {method!r} ('linear' only)")
+    y = resize_hw(x.movedim(-1, -3), out_h, out_w, antialias=antialias)
+    return y.movedim(-3, -1)

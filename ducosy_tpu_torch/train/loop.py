@@ -101,7 +101,7 @@ def train_cycle_gan(cfg: TrainConfig, target_range: str,
                     model_cfg: ModelConfig = ModelConfig(),
                     loss_cfg: LossConfig = LossConfig(), *,
                     range_cfg: Optional[RangeConfig] = None,
-                    device: str | torch.device = "cuda", trunk: str = "tail",
+                    device: str | torch.device = "cuda", trunk: str = "auto",
                     max_epochs: Optional[int] = None,
                     max_steps_per_epoch: Optional[int] = None
                     ) -> Dict[str, object]:
@@ -336,7 +336,7 @@ def _rank_spread(state) -> float:
 
 def run_steps(device, state_dicts, batches, cfg: TrainConfig,
               range_cfg: RangeConfig, model_cfg: ModelConfig = ModelConfig(),
-              loss_cfg: LossConfig = LossConfig(), *, trunk: str = "tail",
+              loss_cfg: LossConfig = LossConfig(), *, trunk: str = "auto",
               remat: bool = False, n_real: int | None = None) -> dict:
     """One training step per global host batch of ``batches`` from the
     networks ``state_dicts`` (keyed as NETS), on this rank's rows (all rows

@@ -70,12 +70,28 @@ class CycleGANState:
         self.best_epoch = int(sd["best_epoch"])
 
 
+def resolve_trunk(trunk: str, range_cfg: RangeConfig,
+                  model_cfg: ModelConfig) -> str:
+    """The training trunk: "auto" is "tail", or "plain" for a range without
+    CBAM or a model with ``fused_norm`` (the trunks that hold the CBAM gates
+    refuse a generator without them)."""
+    if trunk != "auto":
+        return trunk
+    return "tail" if range_cfg.use_cbam and not model_cfg.fused_norm \
+        else "plain"
+
+
 def build_models(range_cfg: RangeConfig, model_cfg: ModelConfig = ModelConfig(),
-                 *, trunk: str = "tail", compute_dtype=None):
-    """The four networks for one HU range (trainer.py:319-330): generators
-    take image + mask channels, discriminators the 1-channel image."""
+                 *, trunk: str = "auto", compute_dtype=None):
+    """The four networks for one HU range (trainer.py:319-330,
+    ducosy_tpu/train/state.py:52-64): generators take image + mask channels,
+    with CBAM as ``range_cfg.use_cbam`` and ``model_cfg.fused_norm``;
+    discriminators the 1-channel image."""
     gens = [Generator(range_cfg.input_channels, model_cfg.num_residual_blocks,
-                      model_cfg.base_channels, trunk, compute_dtype)
+                      model_cfg.base_channels,
+                      resolve_trunk(trunk, range_cfg, model_cfg),
+                      compute_dtype, use_cbam=range_cfg.use_cbam,
+                      fused_norm=model_cfg.fused_norm)
             for _ in range(2)]
     discs = [Discriminator(1, model_cfg.disc_base_channels, compute_dtype)
              for _ in range(2)]
@@ -85,18 +101,22 @@ def build_models(range_cfg: RangeConfig, model_cfg: ModelConfig = ModelConfig(),
 def init_state_dicts(seed: int, range_cfg: RangeConfig,
                      model_cfg: ModelConfig = ModelConfig()):
     """Seeded numpy init of the four networks (N(0, 0.02) weights, zero
-    biases), keyed as NETS."""
+    biases; generators with CBAM as ``range_cfg.use_cbam``), keyed as
+    NETS."""
     in_ch, base = range_cfg.input_channels, model_cfg.base_channels
     blocks, dbase = model_cfg.num_residual_blocks, model_cfg.disc_base_channels
-    return {"g_a2b": init_generator_state_dict(seed, in_ch, base, blocks),
-            "g_b2a": init_generator_state_dict(seed + 1, in_ch, base, blocks),
+    cbam = range_cfg.use_cbam
+    return {"g_a2b": init_generator_state_dict(seed, in_ch, base, blocks,
+                                               cbam),
+            "g_b2a": init_generator_state_dict(seed + 1, in_ch, base, blocks,
+                                               cbam),
             "d_a": init_discriminator_state_dict(seed + 2, 1, dbase),
             "d_b": init_discriminator_state_dict(seed + 3, 1, dbase)}
 
 
 def create_state(cfg: TrainConfig, range_cfg: RangeConfig,
                  model_cfg: ModelConfig = ModelConfig(), *,
-                 device: str | torch.device = "cuda", trunk: str = "tail",
+                 device: str | torch.device = "cuda", trunk: str = "auto",
                  state_dicts=None) -> CycleGANState:
     """Networks from ``state_dicts`` (numpy or tensor values, keyed as
     NETS; default: the seeded init from ``cfg.init_seed``) and fresh Adam

@@ -13,6 +13,12 @@ With ``remat``, each generator forward and the loss terms run under
 ``torch.utils.checkpoint``: only their inputs stay saved, and the backward
 recomputes them (so the forward kernels launch twice per step).
 
+``gen_forward="packed"`` runs the six generator forwards through the
+space-to-depth forward (``models.fused.generator_apply_packed``, as
+ducosy_tpu/train/step.py:94-104) with ``encoder_fused=False``: its "auto"
+trunk, "pallas" on a card (K2/K3 and K4/K5 through their autograd
+Functions) and "xla" on the CPU; a generator without CBAM runs "xla".
+
 In a process group of more than one rank (``parallel/``), each rank runs
 the networks on its rows of the global batch, the generator loss and both
 discriminator losses take their inputs of the whole batch
@@ -23,6 +29,7 @@ step of the global batch on one card, as the JAX step under a sharded
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
@@ -34,6 +41,7 @@ from ducosy_tpu_torch.losses.suite import (
     generator_loss,
     validation_generator_loss,
 )
+from ducosy_tpu_torch.models.fused import generator_apply_packed
 from ducosy_tpu_torch.parallel.mesh import all_reduce_mean, gather_batch, \
     world_size
 from ducosy_tpu_torch.train.state import CycleGANState
@@ -74,7 +82,8 @@ def _params(opt: torch.optim.Optimizer):
 
 def make_train_step(cfg: TrainConfig, loss_cfg: LossConfig = LossConfig(), *,
                     remat: bool = True, n_real: int | None = None,
-                    batched_forwards: bool = False):
+                    batched_forwards: bool = False,
+                    gen_forward: str | None = None):
     """Build step(state, batch) -> metrics, which updates the state's
     networks and optimizers in place and returns 0-d tensors (no sync).
 
@@ -92,14 +101,25 @@ def make_train_step(cfg: TrainConfig, loss_cfg: LossConfig = LossConfig(), *,
     untouched."""
     world = world_size()
     gather = gather_batch if world > 1 else (lambda *xs: xs)
+    # None reads cfg.gen_forward, whose "auto" keeps the module forward
+    # (the JAX loop picks "packed" on a TPU, ducosy_tpu/train/loop.py:
+    # 188-195)
+    gen_forward = gen_forward or cfg.gen_forward
+    if gen_forward == "auto":
+        gen_forward = "module"
+    if gen_forward not in ("module", "packed"):
+        raise ValueError(f"gen_forward must be 'auto', 'module' or "
+                         f"'packed': {gen_forward!r}")
 
     def gen_apply(gen, x):
+        fwd = gen if gen_forward == "module" else functools.partial(
+            generator_apply_packed, gen, encoder_fused=False)
         if not remat:
-            return gen(x)
+            return fwd(x)
         # the saved input is the forward's only residual: keep it in the
         # compute dtype, which the generator casts to first anyway
         dt = gen.compute_dtype or x.dtype
-        return checkpoint(gen, x.to(dt), use_reentrant=False)
+        return checkpoint(fwd, x.to(dt), use_reentrant=False)
 
     def loss_terms(*args):
         real_a, real_b, fake_a, fake_b, rec_a, rec_b, id_a, id_b, la, lb, w \

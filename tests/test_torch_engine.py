@@ -183,21 +183,28 @@ def test_engine_default_device_requires_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"forward": "packed"}, "packed"),
+    ({"trunk": "chain3"}, "requires the packed forward"),
     ({"mesh": [["cpu", "cpu"], ["cpu", "cpu"]]}, "'sp'.*ROADMAP"),
-    ({"masks": True}, "mask")],
-    ids=["kw1-packed", "kw2-multi-device", "kw3-mask"])
+    ({"masks": True}, "mask"),
+    ({"no_cbam": True, "trunk": "chain"}, "needs CBAM checkpoints")],
+    ids=["kw1-jax-trunk", "kw2-multi-device", "kw3-mask", "kw4-no-cbam"])
 def test_engine_refuses_unported_modes(kw, match):
-    """The packed forward and a mesh with an 'sp' axis (a 2-D device grid)
-    are not ported; a 1-D data mesh is served (tests/test_torch_parallel.py).
-    Mask-conditioned checkpoints are served; what is refused is a checkpoint
-    whose input channels do not fit its range's masks (3 channels on LUNG's
-    one mask)."""
+    """What the engine refuses: a JAX packed-trunk name under the module
+    forward and a trunk with the CBAM gates on a checkpoint without them,
+    as the JAX engine refuses them (ducosy_tpu/infer/engine.py:207-219); a
+    mesh with an 'sp' axis (a 2-D device grid), not ported (a 1-D data mesh
+    is served, tests/test_torch_parallel.py). Mask-conditioned checkpoints
+    are served; what is refused is a checkpoint whose input channels do not
+    fit its range's masks (3 channels on LUNG's one mask)."""
     sd = init_generator_state_dict(0, 1, BASE, 1)
-    st, exc = sd, NotImplementedError
+    st, exc = sd, ValueError
     if kw.pop("masks", False):
-        st, exc = init_generator_state_dict(0, 3, BASE, 1), ValueError
+        st = init_generator_state_dict(0, 3, BASE, 1)
         kw["st_range"] = LUNG
+    if kw.pop("no_cbam", False):
+        st = init_generator_state_dict(0, 1, BASE, 1, use_cbam=False)
+    if "mesh" in kw:
+        exc = NotImplementedError
     with pytest.raises(exc, match=match):
         _engine(st, sd, **kw)
 

@@ -78,8 +78,10 @@ def test_no_source_imports_jax_or_the_jax_package():
 def test_port_runs_with_jax_and_the_jax_package_blocked():
     """A fresh interpreter whose ``sys.meta_path`` refuses jax, flax, optax
     and ducosy_tpu imports every module of the port, builds a CPU engine
-    with a mask-conditioned checkpoint and runs a patient through it, then
-    builds an exclusion mask and predicts with the aux model."""
+    with a mask-conditioned checkpoint and runs a patient through it, the
+    same on the packed forward (every trunk kind, the quant modes, a
+    checkpoint without CBAM), then builds an exclusion mask and predicts
+    with the aux model."""
     names = [m.name for m in pkgutil.walk_packages(
         ducosy_tpu_torch.__path__, "ducosy_tpu_torch.")]
     for mod in ("config", "dicom.codec", "dicom.native", "masks.anatomy",
@@ -89,7 +91,8 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
                 "infer.synthesis", "train.torch_resume", "parallel.mesh",
                 "parallel.launch", "dicom.nifti", "masks.heart",
                 "masks.totalseg", "models.unet3d", "models.nmodel_data",
-                "train.nmodel_loop", "cli.masking", "cli.anonymize"):
+                "train.nmodel_loop", "cli.masking", "cli.anonymize",
+                "models.fused"):
         assert f"ducosy_tpu_torch.{mod}" in names, mod
     code = f"""
 import importlib, importlib.abc, sys
@@ -113,6 +116,16 @@ eng = DualGeneratorEngine(init_generator_state_dict(0, 3, 8, 1),
 vol = np.full((3, 48, 48), 1000, np.int16)
 out = eng.run_patient(vol, 1.0, -1024.0, chunk=2)
 assert out.shape == vol.shape and out.dtype == np.int16
+for trunk, quant, cbam in (("xla", "trunk", True), ("pallas", None, True),
+                           ("mega", "trunk", True), ("mono", "full", True),
+                           ("chain2", None, True), ("auto", "full", False)):
+    sds = [init_generator_state_dict(s, 1, 8, 2, use_cbam=cbam)
+           for s in (0, 1)]
+    eng = DualGeneratorEngine(*sds, device="cpu", img_size=32,
+                              compute_dtype=torch.float32, forward="packed",
+                              trunk=trunk, quant=quant)
+    out = eng.run_patient(vol, 1.0, -1024.0, chunk=2)
+    assert out.shape == vol.shape and out.dtype == np.int16
 from ducosy_tpu_torch.masks.totalseg import build_exclusion_mask
 from ducosy_tpu_torch.models.unet3d import UNet3DLight, predict_volume
 labels = np.zeros((2, 16, 16), np.uint8)

@@ -25,6 +25,11 @@ from ducosy_tpu_torch.ops import resize as tresize
 RTOL = ATOL = 1e-5
 
 
+class _Range:
+    def __init__(self, hu_min, hu_max):
+        self.hu_min, self.hu_max = hu_min, hu_max
+
+
 def _close(got, ref, rtol=RTOL, atol=ATOL):
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=rtol,
                                atol=atol)
@@ -37,6 +42,12 @@ HU_CASES = {
     "denormalize_to_hu": lambda m, x: m.denormalize_to_hu(
         x / 3000.0, -1000.0, -150.0),
     "hu_to_stored": lambda m, x: m.hu_to_stored(x, 1.5, -1024.0),
+    "hu_transform": lambda m, x: m.hu_transform(x, 1.5, -1024.0, -150.0,
+                                                250.0),
+    "hu_transform_linear": lambda m, x: m.hu_transform(
+        x, 1.5, -1024.0, -1000.0, -150.0, use_soft_squeezing=False),
+    "preprocess_dual": lambda m, x: m.preprocess_dual(
+        x, 1.5, -1024.0, _Range(-150.0, 250.0), _Range(-1000.0, -150.0))[1],
 }
 
 
@@ -76,6 +87,29 @@ def test_resize_matches_jax(src, dst):
     x = np.random.default_rng(4).normal(0, 1, (2, 3) + src).astype(np.float32)
     _close(tresize.resize_hw(torch.from_numpy(x), *dst),
            jresize.resize_hw(jnp.asarray(x), *dst))
+
+
+@pytest.mark.parametrize("antialias", [True, False])
+def test_resize_nhwc_matches_jax(antialias):
+    """NHWC (and HWC) on H, W; antialias off narrows the down-scale's
+    kernel to jax's unscaled triangle."""
+    x = np.random.default_rng(5).normal(0, 1, (2, 40, 30, 3)).astype(
+        np.float32)
+    _close(tresize.resize_nhwc(torch.from_numpy(x), 24, 45,
+                               antialias=antialias),
+           jresize.resize_nhwc(jnp.asarray(x), 24, 45, antialias=antialias))
+    _close(tresize.resize_nhwc(torch.from_numpy(x[0]), 24, 45),
+           jresize.resize_nhwc(jnp.asarray(x[0]), 24, 45))
+
+
+@pytest.mark.parametrize("sigma", [0.0, 1.5, 6.0])
+def test_gaussian_blur_hw_matches_jax(sigma):
+    """scipy reflect boundary on H and W of NHWC; sigma 6 on a 12-pixel
+    axis reflects more than once."""
+    x = np.random.default_rng(6).normal(0, 1, (2, 12, 20, 3)).astype(
+        np.float32)
+    _close(tfilters.gaussian_blur_hw(torch.from_numpy(x), sigma),
+           jfilters.gaussian_blur_hw(jnp.asarray(x), sigma))
 
 
 def test_resize_same_size_is_identity():
