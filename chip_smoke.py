@@ -201,9 +201,21 @@ drives the serving path the way a user does, at full model width:
      parts of 8: K1 24 and K2 40 launches, the series against one device
      called on the same parts and against phase 4's series, fp32 replicas
      against one fp32 device, slices/s;
+  10p. the (data, sp) mesh serving: the engine on data_sp_mesh(1, 2) and
+     (2, 2) of this card listed 2 and 4 times, phase 4's generators and
+     patient: "auto" resolves to packed/xla; no kernel launches (the JAX
+     package runs none under sp); fp32 within 1 stored unit of the
+     single-device packed/xla engine on >= 99.9% of voxels; bf16 |dHU|
+     against it; the module forward (plain trunk) once; slices/s beside
+     packed/xla's and the peak memory of a patient;
+  10q. the (data, sp) training step on (1, 2) of this card: one fp32 step,
+     remat on, batch 8 of phase 7's tree, against the single-device plain
+     step from the same init (losses within rtol 2e-4, every parameter
+     within 4 lr), no kernel launches; bf16 s/step (steps 6-7 of 7) and
+     peak memory, beside the single-device plain step;
   10n. with two cards or more: 10t and 10s on cuda:0 and cuda:1 over NCCL,
-     and both CLIs with --num_devices 2; on one card it prints that it was
-     not run.
+     10p and 10q on a (1, 2) mesh across them, and both CLIs with
+     --num_devices 2; on one card it prints that it was not run.
 
 Any failure exits non-zero before the result lines. On success the last
 three lines are the card, a JSON object with one record per kernel, and
@@ -3741,13 +3753,198 @@ def run_dp_serving_phase(k1, k2, devices, st, lung, ref, label: str):
         f"{N} in {parts} parts of {N // parts}, chain trunk; {gpu_line()})")
 
 
-def run_multi_card_phase(k1, k2, st, lung, ref, data: Path):
-    """Phase 10n: 10t and 10s on cuda:0 and cuda:1 over NCCL, and both CLIs
-    with --num_devices 2. Needs two cards."""
+# Phases 10p and 10q: the (data, sp) mesh, its rows on this card listed
+# more than once (10n: (1, 2) across cuda:0 and cuda:1). The JAX package
+# runs no Pallas kernel under sp, so neither path may launch one: every
+# launch counter reads 0 after each counted run. Set before any run:
+#  - serving, fp32: the packed forward at trunk="xla" on row bands within 1
+#    stored unit of the single-device packed/xla engine on >=
+#    STORED_UNIT_SHARE of voxels (the same ops, each norm's and pool's sums
+#    taken per band; the JAX package's own sp test holds 99.9%);
+#  - serving, bf16: |dHU| against the single-device engine printed, not
+#    held: cuDNN picks other algorithms at band shapes, and bf16 roundings
+#    of another call size grow through the seeded generators (10s);
+#  - training, fp32, remat on, one step from the same init and batch: the
+#    losses within SP_LOSS_RTOL of the single-device plain step's, every
+#    parameter within SP_PARAM_LR x lr of it (Adam's first step moves a
+#    parameter by ~lr; a gradient at the noise floor may flip its sign);
+#  - training, bf16: s/step of steps 6-7 of SP_TRAIN_STEPS (settled) and
+#    peak memory, beside the single-device plain step's.
+SP_LOSS_RTOL = 2e-4
+SP_PARAM_LR = 4
+SP_TRAIN_STEPS = 7
+
+
+def all_counters(k1, k2, k4, k7) -> dict:
+    """Every kernel wrapper's launch counter (K3 and K5 too)."""
+    return {**packed_counters(k1, k2, k4, k7),
+            "instance_norm_bwd": k2.instance_norm_bwd,
+            "block_tail_bwd": k4.block_tail_bwd}
+
+
+def no_launches(counters: dict, k2, label: str) -> None:
+    got = read_counts(counters, k2)
+    if any(got.values()):
+        fail(f"{label}: the sp path launched kernels {got}")
+
+
+def run_sp_serving_phase(counters, k2, meshes: dict, st, lung, records,
+                         label: str):
+    """Phase 10p: the engine on each (data, sp) mesh of ``meshes`` with
+    phase 4's generators and patient (chunk N), against the single-device
+    packed/xla engine on the mesh's first device."""
+    import torch
+
+    from ducosy_tpu_torch.infer.engine import DualGeneratorEngine
+
+    vol = chest_phantom(SLICES, SIZE, SEED)
+    first = next(iter(meshes.values()))[0][0]
+    engine = lambda dtype, **kw: DualGeneratorEngine(
+        st, lung, img_size=SIZE, compute_dtype=dtype, **kw)
+    one = lambda dtype, **kw: engine(dtype, device=first, **kw)
+
+    def counted(eng, what):
+        zero_counts(counters, k2)
+        out, _ = serve(eng, vol)
+        no_launches(counters, k2, f"{label} {what}")
+        return out
+
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False    # as in phase 4
+    try:
+        ref32, _ = serve(one(torch.float32, forward="packed", trunk="xla"),
+                         vol)
+        for name, mesh in meshes.items():
+            eng = engine(torch.float32, mesh=mesh)
+            if (eng.forward_impl, eng.trunk) != ("packed", "xla"):
+                fail(f"{label} {name}: auto resolved to "
+                     f"{eng.forward_impl}/{eng.trunk}, not packed/xla")
+            records[("sp_fp32", label, name)] = agreement(
+                f"{label} {name} fp32 packed/xla vs one device",
+                counted(eng, f"{name} fp32"), ref32, strict=True)
+            del eng
+        del ref32
+        engines = {"packed xla, one device":
+                   one(torch.bfloat16, forward="packed", trunk="xla")}
+        ref16, _ = serve(engines["packed xla, one device"], vol)
+        for name, mesh in meshes.items():
+            eng = engines[f"sp {name}"] = engine(torch.bfloat16, mesh=mesh)
+            records[("sp_bf16", label, name)] = agreement(
+                f"{label} {name} bf16 packed/xla vs one device",
+                counted(eng, f"{name} bf16"), ref16, strict=False)
+        name, mesh = next(iter(meshes.items()))
+        out = counted(engine(torch.bfloat16, mesh=mesh, forward="module"),
+                      f"{name} module")
+        agreement(f"{label} {name} bf16 module forward (plain trunk) vs "
+                  "the one-device module plain trunk", out,
+                  serve(one(torch.bfloat16, trunk="plain"), vol)[0],
+                  strict=False)
+        rates = rate_rounds(engines, vol, f"{label} bf16")
+        del out
+        base = rates["packed xla, one device"]
+        peaks = {}
+        for key, eng in engines.items():
+            devs = {d for row in eng.rows for d in row}
+            for d in devs:
+                torch.cuda.reset_peak_memory_stats(d)
+            serve(eng, vol)
+            peaks[key] = {str(d): torch.cuda.max_memory_allocated(d) / 2**30
+                          for d in sorted(devs, key=str)}
+        for key, rate in rates.items():
+            log(f"{label} bf16 {key}: {rate:.2f} slices/s ({rate / base:.4f}"
+                f" of packed xla on one device); peak memory allocated "
+                + ", ".join(f"{d} {v:.2f} GiB" for d, v in peaks[key].items())
+                + f" ({SLICES} x {SIZE}^2, chunk {N}; {gpu_line()})")
+        records[("sp_rates", label)] = dict(rates=rates, peaks=peaks)
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    free_card(f"{label} done")
+
+
+def run_sp_training_phase(counters, k2, row, data: Path, records,
+                          label: str):
+    """Phase 10q: the training step with the generators on row bands over
+    ``row`` (a mesh row of (1, len(row))), against the single-device plain
+    step on the same init and batch of 8 from phase 7's tree."""
+    import torch
+
+    from ducosy_tpu_torch.config import ModelConfig, SOFT_TISSUE, \
+        TrainConfig, replace
+    from ducosy_tpu_torch.train.loop import run_steps
+    from ducosy_tpu_torch.train.state import init_state_dicts
+
+    model = ModelConfig(num_residual_blocks=BLOCKS)
+    init = init_state_dicts(SEED + 40, SOFT_TISSUE, model)
+    batches = dp_batches(data)
+    cfg = replace(TrainConfig(), img_size=SIZE, batch_size=TRAIN_N,
+                  compute_dtype="float32")
+    row = tuple(row)
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    try:
+        zero_counts(counters, k2)
+        sp = run_steps(row, init, batches[:1], cfg, SOFT_TISSUE, model,
+                       remat=True)
+        no_launches(counters, k2, f"{label} fp32 step")
+        one = run_steps(row[0], init, batches[:1], cfg, SOFT_TISSUE, model,
+                        trunk="plain", remat=True)
+        free_card(f"{label} after the fp32 steps")
+        got, ref = sp["metrics"][0], one["metrics"][0]
+        rel = {k: abs(got[k] / v - 1) for k, v in ref.items()}
+        dmax = max(float(np.abs(sp["params"][n][k] - v).max())
+                   for n in one["params"] for k, v in one["params"][n].items())
+        log(f"{label} fp32 step, remat on, batch {TRAIN_N} x {SIZE}^2, "
+            f"bands on {[str(d) for d in row]}: loss_G {got['loss_G']:.6f} "
+            f"against one device's {ref['loss_G']:.6f}; largest relative "
+            f"difference of a term {max(rel.values()):.3e} (tolerance "
+            f"{SP_LOSS_RTOL}); max |d| of a parameter {dmax:.3e} (tolerance "
+            f"{SP_PARAM_LR} lr = {SP_PARAM_LR * cfg.lr:.1e}); seconds "
+            f"{sp['seconds'][0]:.3f} against {one['seconds'][0]:.3f}")
+        if max(rel.values()) > SP_LOSS_RTOL or not \
+                dmax < SP_PARAM_LR * cfg.lr:
+            fail(f"{label}: fp32 sp step against one device: relative "
+                 f"{rel}, max parameter |d| {dmax}")
+        del sp, one
+        cfg16 = replace(cfg, compute_dtype="bfloat16")
+        steps = [batches[i % len(batches)] for i in range(SP_TRAIN_STEPS)]
+        out = {}
+        for name, dev_arg, kw in (("sp", row, {}),
+                                  ("one device", row[0],
+                                   {"trunk": "plain"})):
+            for d in set(row):
+                torch.cuda.reset_peak_memory_stats(d)
+            zero_counts(counters, k2)
+            run = run_steps(dev_arg, init, steps, cfg16, SOFT_TISSUE, model,
+                            remat=True, **kw)
+            no_launches(counters, k2, f"{label} bf16 {name}")
+            if not all(np.isfinite(v) for m in run["metrics"]
+                       for v in m.values()):
+                fail(f"{label} bf16 {name}: non-finite losses")
+            settled = run["seconds"][5:7]
+            peak = {str(d): torch.cuda.max_memory_allocated(d) / 2**30
+                    for d in sorted(set(row), key=str)}
+            out[name] = dict(s_per_step=statistics.mean(settled), peak=peak)
+            log(f"{label} bf16 {name} (plain trunk, remat on): steps "
+                f"{[round(v, 4) for v in run['seconds']]} s, settled (6-7) "
+                f"{statistics.mean(settled):.4f}; peak memory "
+                + ", ".join(f"{d} {v:.2f} GiB" for d, v in peak.items())
+                + f" ({gpu_line()})")
+            del run
+            free_card(f"{label} after bf16 {name}")
+        records[("sp_train", label)] = out
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+
+
+def run_multi_card_phase(k1, k2, k4, k7, st, lung, ref, data: Path):
+    """Phase 10n: 10t and 10s on cuda:0 and cuda:1 over NCCL, 10p and 10q
+    on a (1, 2) mesh across them, and both CLIs with --num_devices 2.
+    Needs two cards."""
     import torch
 
     from ducosy_tpu_torch.cli import generate, train
     from ducosy_tpu_torch.infer.engine import DualGeneratorEngine
+    from ducosy_tpu_torch.parallel.mesh import data_sp_mesh
 
     count = torch.cuda.device_count()
     if count < 2:
@@ -3757,6 +3954,10 @@ def run_multi_card_phase(k1, k2, st, lung, ref, data: Path):
     devices = [torch.device("cuda", 0), torch.device("cuda", 1)]
     run_dp_training_phase(devices, "nccl", data, "10n training")
     run_dp_serving_phase(k1, k2, devices, st, lung, ref, "10n serving")
+    counters = all_counters(k1, k2, k4, k7)
+    run_sp_serving_phase(counters, k2, {"(1, 2)": data_sp_mesh(1, 2, devices)},
+                         st, lung, {}, "10n sp serving")
+    run_sp_training_phase(counters, k2, devices, data, {}, "10n sp training")
     with tempfile.TemporaryDirectory() as tmp:
         out = train.main([
             "--data_root", str(data), "--dataset_names", "Smoke",
@@ -3965,6 +4166,7 @@ def main() -> None:
     from ducosy_tpu_torch.ops.kernels import proto_conv_in as proto
     from ducosy_tpu_torch.ops.kernels import residual_chain as k1
     from ducosy_tpu_torch.ops.kernels import tap_probe
+    from ducosy_tpu_torch.parallel.mesh import data_sp_mesh
 
     t0 = time.perf_counter()
     _build.build_all(SOURCES)          # one nvcc per source, all at once
@@ -4040,8 +4242,15 @@ def main() -> None:
               "10t training")
         phase("10s", run_dp_serving_phase, k1, k2, [dev, dev], st, lung,
               engine_out, "10s serving")
-        phase("10n", run_multi_card_phase, k1, k2, st, lung, engine_out,
-              data)
+        counters = all_counters(k1, k2, k4, k7)
+        phase("10p", run_sp_serving_phase, counters, k2,
+              {"(1, 2)": data_sp_mesh(1, 2, [dev] * 2),
+               "(2, 2)": data_sp_mesh(2, 2, [dev] * 4)}, st, lung, records,
+              "10p serving")
+        phase("10q", run_sp_training_phase, counters, k2, [dev, dev], data,
+              records, "10q training")
+        phase("10n", run_multi_card_phase, k1, k2, k4, k7, st, lung,
+              engine_out, data)
     if any(m.split(".")[0] in ("jax", "flax", "optax", "ducosy_tpu")
            for m in sys.modules):
         fail("JAX or the JAX package was imported")

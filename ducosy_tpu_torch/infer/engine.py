@@ -22,7 +22,21 @@ quantized per replica), each chunk split into ``len(mesh)`` equal parts,
 every part enqueued on its device before any is gathered onto the first
 device, where the composite and the z-coupled postprocess run.
 ``generate_batch`` runs on the first device, as the JAX engine's does not
-shard either. A mesh with an ``sp`` axis (nested device lists) raises.
+shard either.
+
+A (data, sp) mesh (``parallel.data_sp_mesh``: rows of devices) serves each
+part of a chunk on one mesh row: the resize, normalization, mask channels,
+composite and postprocess whole on the row's first device, the generators
+on row bands over the row's devices (``models/banded.py``), which divides
+their activation footprint. It resolves and refuses as the JAX engine
+(ducosy_tpu/infer/engine.py:56-93): ``quant``, ``trunk_int8``,
+``fused_norm`` and any trunk but "auto"/"xla" raise; ``forward="auto"`` is
+the packed forward at ``trunk="xla"`` when ``img_size`` divides by 4, else
+the module forward, which an explicit ``forward="module"`` also serves (its
+plain trunk); ``run_patient`` raises on a height the sp axis does not
+divide. Unlike JAX, an ``img_size`` that does not divide by 4 or gives
+fewer 4-row bands than ``sp`` raises (ROADMAP.md Queue 3). ``generate_batch``
+serves through the first row.
 
 Mask-conditioned checkpoints (stem input channels > 1: image + the range's
 anatomical masks, what the training CLI writes for SOFT_TISSUE and LUNG)
@@ -33,8 +47,9 @@ patient's masks overlap this patient's device work. One model may be
 mask-conditioned and the other not.
 
 ``forward`` picks the generator forward, as the JAX engine's
-(ducosy_tpu/infer/engine.py:44-222): "module" (the default; "auto" is
-"module") runs ``models.generator.Generator``, "packed" the space-to-depth
+(ducosy_tpu/infer/engine.py:44-222): "module" runs
+``models.generator.Generator`` ("auto", the default, is "module" but under
+an sp axis), "packed" the space-to-depth
 forward of ``models/fused.py`` with its weights laid out once a device.
 ``trunk`` under "module": "chain" (K1), "mega" (K7 + K8 per block), "tail"
 (the training trunk) or "plain"; "auto" (the default) is "chain", or
@@ -73,6 +88,7 @@ from ducosy_tpu_torch.device import require_cuda
 from ducosy_tpu_torch.infer.synthesis import composite_volume, \
     synthesize_volume
 from ducosy_tpu_torch.masks import generate_anatomical_masks
+from ducosy_tpu_torch.models.banded import BandedGenerator
 from ducosy_tpu_torch.models.convert import (
     load_torch_state_dict,
     state_dict_blocks,
@@ -83,7 +99,8 @@ from ducosy_tpu_torch.models.generator import Generator
 from ducosy_tpu_torch.ops import hu
 from ducosy_tpu_torch.ops.quant import INT8_NORM_SCALE, check_quant
 from ducosy_tpu_torch.ops.resize import resize_hw
-from ducosy_tpu_torch.parallel.mesh import data_mesh
+from ducosy_tpu_torch.parallel.mesh import data_mesh, mesh_rows
+from ducosy_tpu_torch.parallel.spatial import GROUP
 
 
 class DualGeneratorEngine:
@@ -99,16 +116,24 @@ class DualGeneratorEngine:
                  lung_range: RangeConfig = LUNG, img_size: int = 512,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  device: str | torch.device | None = None,
-                 trunk: str = "auto", forward: str = "module",
+                 trunk: str = "auto", forward: str = "auto",
                  quant: str | None = None, trunk_int8: bool = False,
                  soft_squeeze: bool = False, mesh=None,
                  fused_norm: bool = False):
         # device: default "cuda", or the mesh's first device, which a
-        # device named beside a mesh must agree with
+        # device named beside a mesh must agree with. self.mesh holds each
+        # data row's first device, self.rows the rows (one device a row
+        # without an sp axis)
         if mesh is None:
-            self.mesh = (require_cuda(device or "cuda"),)
+            self.rows = ((require_cuda(device or "cuda"),),)
         else:
-            self.mesh = tuple(require_cuda(d) for d in data_mesh(devices=mesh))
+            rows = mesh_rows(mesh)
+            if len(rows[0]) == 1:
+                rows = tuple((d,) for d in data_mesh(devices=mesh))
+            self.rows = tuple(tuple(require_cuda(d) for d in r) for r in rows)
+        self.mesh = tuple(r[0] for r in self.rows)
+        self.sp = len(self.rows[0])
+        if mesh is not None:
             named = None if device is None else torch.device(device)
             first = self.mesh[0]
             if named is not None and (named.type != first.type or (
@@ -117,6 +142,10 @@ class DualGeneratorEngine:
                 raise ValueError(f"device={named} disagrees with the mesh's "
                                  f"first device {first}")
         self.device = self.mesh[0]
+        if self.sp > 1:
+            forward, trunk = self._resolve_sp(forward, trunk, quant,
+                                              trunk_int8, fused_norm,
+                                              img_size)
         if quant is None and trunk_int8:
             quant = "trunk"
         self.quant = check_quant(quant)
@@ -151,7 +180,11 @@ class DualGeneratorEngine:
             forward, trunk, (st_sd, lung_sd), img_size)
         self.fused_norm = fused_norm
 
-        def build(sd, device):
+        def build(sd, row):
+            if self.sp > 1:
+                return BandedGenerator(sd, devices=row, dtype=compute_dtype,
+                                       forward=self.forward_impl)
+            device = row[0]
             if self.forward_impl == "packed":
                 return PackedGenerator(sd, dtype=compute_dtype, device=device,
                                        trunk=self.trunk, quant=quant)
@@ -165,10 +198,34 @@ class DualGeneratorEngine:
             gen = gen.to(memory_format=torch.channels_last)
             return gen.eval().requires_grad_(False)
 
-        # (soft-tissue, lung) generators per mesh device
-        self.replicas = [(build(st_sd, d), build(lung_sd, d))
-                         for d in self.mesh]
+        # (soft-tissue, lung) generators per mesh row
+        self.replicas = [(build(st_sd, r), build(lung_sd, r))
+                         for r in self.rows]
         self.st_generator, self.lung_generator = self.replicas[0]
+
+    def _resolve_sp(self, forward, trunk, quant, trunk_int8, fused_norm,
+                    img_size):
+        """(forward, trunk) under an sp axis, as the JAX engine resolves
+        and refuses them (ducosy_tpu/infer/engine.py:56-93)."""
+        if quant or trunk_int8 or fused_norm:
+            raise ValueError(
+                "spatial ('sp') sharding partitions the H axis, which the "
+                "kernels and the quantized modes don't support: serve those "
+                "on one device or over a pure 'data' mesh")
+        if trunk not in ("auto", "xla"):
+            raise ValueError(
+                f"trunk={trunk!r} is a kernel path; under sp sharding only "
+                "trunk='xla' partitions")
+        if forward == "auto":
+            forward = "packed" if img_size % 4 == 0 else "module"
+        if forward == "packed":
+            trunk = "xla"
+        if img_size % GROUP or img_size // GROUP < self.sp:
+            raise ValueError(
+                f"img_size {img_size} under sp = {self.sp}: the row bands "
+                f"need img_size divisible by {GROUP} and at least {GROUP} "
+                "rows a band")
+        return forward, trunk
 
     def _resolve(self, forward: str, trunk: str, sds, img_size: int):
         """(forward, trunk) as the JAX engine resolves and refuses them
@@ -389,6 +446,9 @@ class DualGeneratorEngine:
         if chunk % len(self.mesh):
             raise ValueError(f"chunk={chunk} not divisible by data-axis size "
                              f"{len(self.mesh)}")
+        if h % self.sp:
+            raise ValueError(f"image height {h} not divisible by sp-axis "
+                             f"size {self.sp}")
         pad = (-z) % chunk
         stored = np.concatenate(
             [stored_volume, stored_volume[-1:].repeat(pad, axis=0)]

@@ -315,28 +315,32 @@ def head_packed_kernel(w: torch.Tensor) -> torch.Tensor:
     return _assemble(w.reshape(k * k, cin, cout), _head_table(k), 3, 16, 16)
 
 
+def packed16_edge(border: torch.Tensor, c: int, axis: int, side: str,
+                  fill=0) -> torch.Tensor:
+    """The packed row (``axis`` 1) or column (2) that ``packed16_reflect_pad3``
+    puts before ("pre": true lines -4..-1) or after ("post": H..H+3) a
+    packed-16 tensor whose first or last packed line is ``border``: a phase
+    permutation of it, the never-tapped outermost true line ``fill``."""
+    dim = -3 if axis == 1 else -2
+    perm = [None, 3, 2, 1] if side == "pre" else [2, 1, 0, None]
+    b = border.reshape(border.shape[:-1] + (4, 4, c))
+    parts = [torch.full_like(b.select(dim, 0), fill) if k_ is None
+             else b.select(dim, k_) for k_ in perm]
+    return torch.stack(parts, dim=dim).reshape(border.shape)
+
+
 def packed16_reflect_pad3(x: torch.Tensor, c: int, fill=0) -> torch.Tensor:
     """True-grid ReflectionPad2d(3) of a packed-16 tensor: one packed
     row/col a side whose phase channels are the reflected true rows/cols
     (a phase permutation of the adjacent packed row/col); the never-tapped
     outermost true line is ``fill`` (-128 on the shifted int8 grid, the
     exact code of 0) (fused.py:439-473)."""
-
-    def phase_sel(border, perm, dim):
-        b = border.reshape(border.shape[:-1] + (4, 4, c))
-        parts = [torch.full_like(b.select(dim, 0), fill) if k_ is None
-                 else b.select(dim, k_) for k_ in perm]
-        return torch.stack(parts, dim=dim).reshape(border.shape)
-
-    def pad_axis(t, axis):
-        dim = -3 if axis == 1 else -2
-        first = t.narrow(axis, 0, 1)
-        last = t.narrow(axis, t.shape[axis] - 1, 1)
-        pre = phase_sel(first, [None, 3, 2, 1], dim)    # true rows -4..-1
-        post = phase_sel(last, [2, 1, 0, None], dim)    # true rows H..H+3
-        return torch.cat([pre, t, post], dim=axis)
-
-    return pad_axis(pad_axis(x, 1), 2)
+    for axis in (1, 2):
+        first = x.narrow(axis, 0, 1)
+        last = x.narrow(axis, x.shape[axis] - 1, 1)
+        x = torch.cat([packed16_edge(first, c, axis, "pre", fill), x,
+                       packed16_edge(last, c, axis, "post", fill)], dim=axis)
+    return x
 
 
 # ---------------------------------------------------------------- norms

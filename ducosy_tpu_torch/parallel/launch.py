@@ -1,7 +1,10 @@
-"""One process per mesh device: spawn the ranks, run a function in each,
+"""One process per mesh row: spawn the ranks, run a function in each,
 return their results or raise the first failure.
 
     spawn(fn, args, devices)   # [fn(devices[0], *args), ...] in rank order
+
+A rank's entry is a device, or its row of a (data, sp) mesh (a tuple of
+devices, passed to ``fn`` as it is): a (2, 2) run is 2 ranks of 2 bands.
 
 Each rank is a fresh interpreter (the ``spawn`` start method) that joins a
 process group at ``tcp://localhost:<free port>`` with a finite timeout, so
@@ -61,9 +64,10 @@ def _rank_main(index: int, world: int, port: int, backend: str,
                fn: Callable, args: tuple, kwargs: dict, results) -> None:
     import torch.distributed as dist
 
+    first = device[0] if isinstance(device, tuple) else device
     try:
-        if device.type == "cuda":
-            torch.cuda.set_device(device)
+        if first.type == "cuda":
+            torch.cuda.set_device(first)
         else:   # CPU ranks share the host's cores
             torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
         dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
@@ -88,10 +92,14 @@ def spawn(fn: Callable, args: tuple, devices: Sequence[torch.device], *,
           timeout: float | None = None,
           pg_timeout: datetime.timedelta = PG_TIMEOUT) -> list[Any]:
     """Run ``fn(devices[i], *args, **kwargs)`` as rank i of
-    ``len(devices)`` and return the results in rank order. ``timeout`` (seconds, None: no limit)
+    ``len(devices)`` and return the results in rank order; an entry may be
+    a row of devices (a tuple). ``timeout`` (seconds, None: no limit)
     bounds the whole run; ``pg_timeout`` each collective."""
-    devices = [torch.device(d) for d in devices]
-    backend = backend or default_backend(devices[0])
+    devices = [tuple(torch.device(x) for x in d)
+               if isinstance(d, (list, tuple)) else torch.device(d)
+               for d in devices]
+    first = devices[0][0] if isinstance(devices[0], tuple) else devices[0]
+    backend = backend or default_backend(first)
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     port, world = free_port(), len(devices)

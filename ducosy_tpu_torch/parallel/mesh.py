@@ -15,8 +15,17 @@ The reference's only parallelism is nn.DataParallel over up to 8 GPUs
     each optimizer's gradients as a mean (``all_reduce_mean``), the
     counterpart of XLA's ``psum`` under the sharded ``jit``.
 
-The JAX package's (data, sp) mesh is not ported: its ``sp`` axis runs only
-under the packed forward's ``trunk="xla"``, which the port does not have.
+``data_sp_mesh(dp, sp)`` is the JAX package's 2-D (data, sp) mesh: a tuple
+of ``dp`` rows of ``sp`` devices. Batch rows go over the data axis as
+above, one rank a mesh row (``process_row_slice`` and ``shard_batch`` count
+data rows), and each row's images go over its ``sp`` devices in bands of
+image rows (the H axis of NHWC): ``parallel/spatial.py`` holds the bands,
+their halo windows and the cross-band InstanceNorm and CBAM reductions,
+which XLA's SPMD partitioner writes in JAX; ``models/banded.py`` the
+generator forwards on them. It splits each card's activation footprint
+where the batch axis cannot. Only the generators are banded, and only on
+their plain PyTorch math: the JAX package runs no Pallas kernel under
+``sp`` (ducosy_tpu/infer/engine.py:69-80).
 """
 from __future__ import annotations
 
@@ -28,11 +37,9 @@ import torch
 import torch.distributed as dist
 
 DATA_AXIS = "data"
+SP_AXIS = "sp"
 # a collective that waits longer than this raises (NCCL's default)
 PG_TIMEOUT = datetime.timedelta(minutes=10)
-SP_REFUSAL = ("an 'sp' (row-sharding) axis is not ported: the JAX package "
-              "runs it only under the packed forward's trunk='xla' "
-              "(ROADMAP.md Queue 1, the 'sp' axis)")
 
 
 def data_mesh(n_devices: int | None = None,
@@ -49,7 +56,8 @@ def data_mesh(n_devices: int | None = None,
             raise ValueError(f"{n} CUDA cards asked for, {visible} visible")
         return tuple(torch.device("cuda", i) for i in range(n))
     if any(isinstance(d, (list, tuple)) for d in devices):
-        raise NotImplementedError(SP_REFUSAL)
+        raise ValueError("data_mesh is 1-D: build a (data, sp) mesh of "
+                         "device rows with data_sp_mesh")
     devs = tuple(torch.device(d) for d in devices)
     n = len(devs) if n_devices is None else n_devices
     if n < 1 or n > len(devs):
@@ -57,10 +65,49 @@ def data_mesh(n_devices: int | None = None,
     return devs[:n]
 
 
+def data_sp_mesh(dp: int, sp: int,
+                 devices: Sequence[str | torch.device] | None = None
+                 ) -> tuple[tuple[torch.device, ...], ...]:
+    """2-D (data, sp) mesh: ``dp`` rows of ``sp`` devices, batch rows over
+    the rows, image rows over each row's devices. The first ``dp * sp`` of
+    the listed ``devices`` (repeats allowed: one card or the CPU listed
+    several times) or of the visible CUDA cards, row-major, as the JAX
+    function takes them; more than exist raises with its message."""
+    if devices is None:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devs = [torch.device(d) for d in devices]
+    if dp < 1 or sp < 1:
+        raise ValueError(f"mesh {dp}x{sp}: both axes need a device")
+    if dp * sp > len(devs):
+        raise ValueError(f"mesh {dp}x{sp} exceeds {len(devs)} devices")
+    return tuple(tuple(devs[r * sp:(r + 1) * sp]) for r in range(dp))
+
+
+def mesh_rows(mesh) -> tuple[tuple[torch.device, ...], ...]:
+    """A mesh as its rows of devices: a ``data_sp_mesh`` as it is, a 1-D
+    ``data_mesh`` (or a list of devices) as rows of one device."""
+    rows = tuple(tuple(torch.device(d) for d in r)
+                 if isinstance(r, (list, tuple)) else (torch.device(r),)
+                 for r in mesh)
+    if not rows or len({len(r) for r in rows}) != 1 or not rows[0]:
+        raise ValueError(f"a mesh is a list of devices or of equal rows of "
+                         f"devices: {mesh!r}")
+    return rows
+
+
+def mesh_shape(mesh) -> tuple[int, int]:
+    """(dp, sp) of a mesh; a 1-D mesh of n devices is (n, 1)."""
+    rows = mesh_rows(mesh)
+    return len(rows), len(rows[0])
+
+
 def process_row_slice(world: int, rank: int, global_batch: int) -> slice:
-    """The rows of a global batch that ``rank`` of ``world`` owns on a 1-D
-    mesh, one device a rank: each rank loads only these (HostLoader's
-    ``shard``). The same rows and errors as the JAX function (mesh.py:80)."""
+    """The rows of a global batch that ``rank`` of ``world`` owns, one rank
+    a data row of the mesh (a device of a 1-D mesh, a row of ``sp`` devices
+    of a (data, sp) mesh, whose process feeds whole images): each rank
+    loads only these (HostLoader's ``shard``). The same rows and errors as
+    the JAX function (mesh.py:80)."""
     if global_batch % world != 0:
         raise ValueError(f"global batch {global_batch} not divisible by "
                          f"{world} data-axis devices")

@@ -21,6 +21,12 @@ out-of-memory retry is decided across ranks on each step function's first
 run; a rank that runs out of memory alone (the others wait in a
 collective) ends the run within the process group's timeout.
 
+``mesh=`` takes a (data, sp) mesh (``parallel.data_sp_mesh``), one rank a
+data row: rank r trains on row r, its first device holding the state, and
+each generator forward runs on row bands over the row's devices
+(``train/step.py``); the trunk "auto" is then "plain", the one trunk the
+JAX package partitions.
+
 Each step is followed by a device synchronize, so the summary's
 ``step_seconds`` are the steps' wall times.
 """
@@ -43,7 +49,8 @@ from ducosy_tpu_torch.data.dataset import SlicePairDataset
 from ducosy_tpu_torch.device import require_cuda
 from ducosy_tpu_torch.ops.hu import apply_windowing
 from ducosy_tpu_torch.parallel.mesh import all_reduce_sum, any_rank, \
-    barrier, process_row_slice, rank, replicate, shard_batch, world_size
+    barrier, mesh_rows, process_row_slice, rank, replicate, shard_batch, \
+    world_size
 from ducosy_tpu_torch.train import checkpoint as ckpt
 from ducosy_tpu_torch.train.schedule import lr_for_epoch
 from ducosy_tpu_torch.train.state import NETS, create_state
@@ -97,22 +104,38 @@ def _export_trace(profiler, profile_dir: str) -> None:
     return None
 
 
+def sp_row(device, trunk: str):
+    """(device, sp row or None, trunk) of a rank given one device or its row
+    of a (data, sp) mesh; under sp the trunk "auto" is "plain"."""
+    row = tuple(require_cuda(d) for d in device) \
+        if isinstance(device, (list, tuple)) else (require_cuda(device),)
+    sp = row if len(row) > 1 else None
+    return row[0], sp, "plain" if sp and trunk == "auto" else trunk
+
+
 def train_cycle_gan(cfg: TrainConfig, target_range: str,
                     model_cfg: ModelConfig = ModelConfig(),
                     loss_cfg: LossConfig = LossConfig(), *,
                     range_cfg: Optional[RangeConfig] = None,
                     device: str | torch.device = "cuda", trunk: str = "auto",
-                    max_epochs: Optional[int] = None,
+                    mesh=None, max_epochs: Optional[int] = None,
                     max_steps_per_epoch: Optional[int] = None
                     ) -> Dict[str, object]:
     """Train one HU-range CycleGAN; returns summary stats: the losses, the
     remat mode the run ended in (and whether it fell back to remat), each
     step's wall time, the first step's metrics and (on a card) the peak
-    device memory (this rank's)."""
+    device memory (this rank's). With ``mesh`` (one rank a data row) the
+    rank's row replaces ``device``."""
     if target_range not in RANGES and range_cfg is None:
         raise ValueError("target_range must be either 'soft_tissue' or 'lung'")
     range_cfg = range_cfg or RANGES[target_range]
-    dev = require_cuda(device)
+    if mesh is not None:
+        rows = mesh_rows(mesh)
+        if len(rows) != world_size():
+            raise ValueError(f"a mesh of {len(rows)} data rows trains on as "
+                             f"many ranks, not {world_size()}")
+        device = rows[rank()]
+    dev, sp, trunk = sp_row(device, trunk)
     cuda = dev.type == "cuda"
     world, primary = world_size(), rank() == 0
     shard = None
@@ -165,7 +188,8 @@ def train_cycle_gan(cfg: TrainConfig, target_range: str,
     say(f"Train/Val split: {len(train_ds)} / {len(val_ds)} slices")
 
     remat_active = cfg.remat == "on"
-    train_step = make_train_step(cfg, loss_cfg, remat=remat_active)
+    train_step = make_train_step(cfg, loss_cfg, remat=remat_active,
+                                 sp_devices=sp)
     # wrap-padded final batches carry a "weight" vector and need a step
     # built with the real-sample count (exact ragged semantics)
     final_steps: Dict[int, object] = {}
@@ -179,7 +203,8 @@ def train_cycle_gan(cfg: TrainConfig, target_range: str,
         n_real = loader.final_n_real
         if n_real not in final_steps:
             final_steps[n_real] = make_train_step(
-                cfg, loss_cfg, remat=remat_active, n_real=n_real)
+                cfg, loss_cfg, remat=remat_active, n_real=n_real,
+                sp_devices=sp)
         return final_steps[n_real]
 
     logger = MetricsLogger(os.path.join(training_dir, "metrics.jsonl")) \
@@ -231,7 +256,8 @@ def train_cycle_gan(cfg: TrainConfig, target_range: str,
                 oom_fallback = True
                 torch.cuda.empty_cache()
                 remat_active = True
-                train_step = make_train_step(cfg, loss_cfg, remat=True)
+                train_step = make_train_step(cfg, loss_cfg, remat=True,
+                                             sp_devices=sp)
                 final_steps.clear()
                 metrics = step_for(host_batch)(state, batch)
             if cuda:
@@ -268,7 +294,7 @@ def train_cycle_gan(cfg: TrainConfig, target_range: str,
                 if max_steps_per_epoch and vb_idx >= max_steps_per_epoch:
                     break
                 loss = float(val_step(state, _to_device(host_batch, dev),
-                                      cfg)[0])
+                                      cfg, sp_devices=sp)[0])
                 if world > 1:   # each term is a mean over real rows
                     rows = float(host_batch["weight"].sum()) \
                         if "weight" in host_batch else len(host_batch["a"])
@@ -280,7 +306,7 @@ def train_cycle_gan(cfg: TrainConfig, target_range: str,
             val_loss = total / max(n_batches, 1)
             if primary:   # the grid of rank 0's rows, as the JAX primary's
                 _, fake_b = val_step(state, _to_device(fixed_val_batch, dev),
-                                     cfg)
+                                     cfg, sp_devices=sp)
                 win = lambda x: apply_windowing(
                     torch.as_tensor(x).float().cpu(), range_cfg.hu_min,
                     range_cfg.hu_max, range_cfg.window_center,
@@ -341,7 +367,8 @@ def run_steps(device, state_dicts, batches, cfg: TrainConfig,
     """One training step per global host batch of ``batches`` from the
     networks ``state_dicts`` (keyed as NETS), on this rank's rows (all rows
     in one process): the rank worker of the data-parallel step's checks
-    (``parallel.launch.spawn(run_steps, ...)``). Returns per step the
+    (``parallel.launch.spawn(run_steps, ...)``). ``device`` may be the
+    rank's row of a (data, sp) mesh. Returns per step the
     metrics, the synchronized seconds, the launches of K2-K5 and the
     spread of the parameters across ranks; and as numpy on rank 0 (None on
     the other ranks) the first step's gradients, taken where both sides of
@@ -354,10 +381,11 @@ def run_steps(device, state_dicts, batches, cfg: TrainConfig,
                 "instance_norm_bwd": k2.instance_norm_bwd,
                 "block_tail": k4.block_tail,
                 "block_tail_bwd": k4.block_tail_bwd}
-    device = torch.device(device)
+    device, sp, trunk = sp_row(device, trunk)
     state = create_state(cfg, range_cfg, model_cfg, device=device,
                          trunk=trunk, state_dicts=state_dicts)
-    step = make_train_step(cfg, loss_cfg, remat=remat, n_real=n_real)
+    step = make_train_step(cfg, loss_cfg, remat=remat, n_real=n_real,
+                           sp_devices=sp)
     out: Dict[str, object] = {"metrics": [], "seconds": [], "launches": [],
                               "spread": []}
     primary = rank() == 0

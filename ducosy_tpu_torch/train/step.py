@@ -26,11 +26,21 @@ discriminator losses take their inputs of the whole batch
 each optimizer's gradients are all-reduced as a mean before it steps: the
 step of the global batch on one card, as the JAX step under a sharded
 ``jit`` (tests/test_train_step.py:100-130).
+
+With ``sp_devices`` (a rank's row of a (data, sp) mesh, its first device
+the parameters'), each generator forward runs on row bands over those
+devices (``models.banded.banded_apply``: the module forward, or the packed
+one under ``gen_forward="packed"``, both on their plain math) and its
+output is gathered onto the first device, where the discriminators and
+the losses run on whole images: the same math as JAX's step on a (data,
+sp) mesh (tests/test_train_step.py:264-294), which also partitions those.
+A generator whose forward holds kernels (trunk "tail", ``fused_norm``)
+raises, as the JAX engine refuses them under ``sp``.
 """
 from __future__ import annotations
 
 import functools
-from typing import Dict
+from typing import Dict, Sequence
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -41,6 +51,7 @@ from ducosy_tpu_torch.losses.suite import (
     generator_loss,
     validation_generator_loss,
 )
+from ducosy_tpu_torch.models.banded import banded_apply
 from ducosy_tpu_torch.models.fused import generator_apply_packed
 from ducosy_tpu_torch.parallel.mesh import all_reduce_mean, gather_batch, \
     world_size
@@ -83,7 +94,8 @@ def _params(opt: torch.optim.Optimizer):
 def make_train_step(cfg: TrainConfig, loss_cfg: LossConfig = LossConfig(), *,
                     remat: bool = True, n_real: int | None = None,
                     batched_forwards: bool = False,
-                    gen_forward: str | None = None):
+                    gen_forward: str | None = None,
+                    sp_devices: Sequence | None = None):
     """Build step(state, batch) -> metrics, which updates the state's
     networks and optimizers in place and returns 0-d tensors (no sync).
 
@@ -98,7 +110,8 @@ def make_train_step(cfg: TrainConfig, loss_cfg: LossConfig = LossConfig(), *,
     see the pre-update D weights and the detached fakes either way, so the
     result is the reference's order). ``step.updating`` is True once the
     optimizers have started: an error raised before that left the state
-    untouched."""
+    untouched. ``sp_devices``: the generators on row bands over these
+    devices (see above); one device or None is the whole image."""
     world = world_size()
     gather = gather_batch if world > 1 else (lambda *xs: xs)
     # None reads cfg.gen_forward, whose "auto" keeps the module forward
@@ -111,9 +124,17 @@ def make_train_step(cfg: TrainConfig, loss_cfg: LossConfig = LossConfig(), *,
         raise ValueError(f"gen_forward must be 'auto', 'module' or "
                          f"'packed': {gen_forward!r}")
 
+    sp = _sp_row(sp_devices)
+
     def gen_apply(gen, x):
-        fwd = gen if gen_forward == "module" else functools.partial(
-            generator_apply_packed, gen, encoder_fused=False)
+        if sp:
+            fwd = functools.partial(banded_apply, gen, devices=sp,
+                                    forward=gen_forward)
+        elif gen_forward == "module":
+            fwd = gen
+        else:
+            fwd = functools.partial(generator_apply_packed, gen,
+                                    encoder_fused=False)
         if not remat:
             return fwd(x)
         # the saved input is the forward's only residual: keep it in the
@@ -179,12 +200,22 @@ def make_train_step(cfg: TrainConfig, loss_cfg: LossConfig = LossConfig(), *,
     return step
 
 
+def _sp_row(devices) -> tuple | None:
+    """A row of two or more devices, or None (the whole image)."""
+    row = tuple(torch.device(d) for d in devices or ())
+    return row if len(row) > 1 else None
+
+
 @torch.no_grad()
-def val_step(state: CycleGANState, batch: Batch, cfg: TrainConfig):
+def val_step(state: CycleGANState, batch: Batch, cfg: TrainConfig, *,
+             sp_devices: Sequence | None = None):
     """Validation loss, GAN + cycle + identity only (trainer.py:209-255),
-    and fake_b."""
+    and fake_b; the module forward on row bands over ``sp_devices`` as in
+    ``make_train_step``."""
+    sp = _sp_row(sp_devices)
     fake_a, fake_b, id_a, id_b, rec_a, rec_b = forward_all(
-        lambda g, x: g(x), state.g_a2b, state.g_b2a, batch)
+        (lambda g, x: banded_apply(g, x, sp)) if sp else (lambda g, x: g(x)),
+        state.g_a2b, state.g_b2a, batch)
     loss = validation_generator_loss(
         real_a=batch["a"], real_b=batch["b"], fake_a=fake_a, fake_b=fake_b,
         rec_a=rec_a, rec_b=rec_b, id_a=id_a, id_b=id_b,

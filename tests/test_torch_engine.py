@@ -184,7 +184,8 @@ def test_engine_default_device_requires_cuda(monkeypatch):
 
 @pytest.mark.parametrize("kw,match", [
     ({"trunk": "chain3"}, "requires the packed forward"),
-    ({"mesh": [["cpu", "cpu"], ["cpu", "cpu"]]}, "'sp'.*ROADMAP"),
+    ({"mesh": [["cpu", "cpu"], ["cpu", "cpu"]], "quant": "trunk"},
+     "spatial \\('sp'\\) sharding"),
     ({"masks": True}, "mask"),
     ({"no_cbam": True, "trunk": "chain"}, "needs CBAM checkpoints")],
     ids=["kw1-jax-trunk", "kw2-multi-device", "kw3-mask", "kw4-no-cbam"])
@@ -192,8 +193,9 @@ def test_engine_refuses_unported_modes(kw, match):
     """What the engine refuses: a JAX packed-trunk name under the module
     forward and a trunk with the CBAM gates on a checkpoint without them,
     as the JAX engine refuses them (ducosy_tpu/infer/engine.py:207-219); a
-    mesh with an 'sp' axis (a 2-D device grid), not ported (a 1-D data mesh
-    is served, tests/test_torch_parallel.py). Mask-conditioned checkpoints
+    quantized mode on a mesh with an 'sp' axis (a 2-D device grid), as the
+    JAX engine refuses it (engine.py:69-75; the sp mesh is served,
+    tests/test_torch_spatial_mesh.py). Mask-conditioned checkpoints
     are served; what is refused is a checkpoint whose input channels do not
     fit its range's masks (3 channels on LUNG's one mask)."""
     sd = init_generator_state_dict(0, 1, BASE, 1)
@@ -203,8 +205,6 @@ def test_engine_refuses_unported_modes(kw, match):
         kw["st_range"] = LUNG
     if kw.pop("no_cbam", False):
         st = init_generator_state_dict(0, 1, BASE, 1, use_cbam=False)
-    if "mesh" in kw:
-        exc = NotImplementedError
     with pytest.raises(exc, match=match):
         _engine(st, sd, **kw)
 

@@ -80,8 +80,8 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
     and ducosy_tpu imports every module of the port, builds a CPU engine
     with a mask-conditioned checkpoint and runs a patient through it, the
     same on the packed forward (every trunk kind, the quant modes, a
-    checkpoint without CBAM), then builds an exclusion mask and predicts
-    with the aux model."""
+    checkpoint without CBAM) and on a (2, 2) (data, sp) mesh, then builds an
+    exclusion mask and predicts with the aux model."""
     names = [m.name for m in pkgutil.walk_packages(
         ducosy_tpu_torch.__path__, "ducosy_tpu_torch.")]
     for mod in ("config", "dicom.codec", "dicom.native", "masks.anatomy",
@@ -92,7 +92,7 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
                 "parallel.launch", "dicom.nifti", "masks.heart",
                 "masks.totalseg", "models.unet3d", "models.nmodel_data",
                 "train.nmodel_loop", "cli.masking", "cli.anonymize",
-                "models.fused"):
+                "models.fused", "parallel.spatial", "models.banded"):
         assert f"ducosy_tpu_torch.{mod}" in names, mod
     code = f"""
 import importlib, importlib.abc, sys
@@ -124,6 +124,13 @@ for trunk, quant, cbam in (("xla", "trunk", True), ("pallas", None, True),
     eng = DualGeneratorEngine(*sds, device="cpu", img_size=32,
                               compute_dtype=torch.float32, forward="packed",
                               trunk=trunk, quant=quant)
+    out = eng.run_patient(vol, 1.0, -1024.0, chunk=2)
+    assert out.shape == vol.shape and out.dtype == np.int16
+from ducosy_tpu_torch.parallel.mesh import data_sp_mesh
+for forward in ("auto", "module"):
+    eng = DualGeneratorEngine(*sds, img_size=32, compute_dtype=torch.float32,
+                              mesh=data_sp_mesh(2, 2, ["cpu"] * 4),
+                              forward=forward)
     out = eng.run_patient(vol, 1.0, -1024.0, chunk=2)
     assert out.shape == vol.shape and out.dtype == np.int16
 from ducosy_tpu_torch.masks.totalseg import build_exclusion_mask

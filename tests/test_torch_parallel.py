@@ -61,7 +61,8 @@ from ducosy_tpu_torch.models.convert import (
     generator_state_dict_from_jax,
 )
 from ducosy_tpu_torch.parallel import launch
-from ducosy_tpu_torch.parallel.mesh import data_mesh, process_row_slice
+from ducosy_tpu_torch.parallel.mesh import data_mesh, data_sp_mesh, \
+    process_row_slice
 from ducosy_tpu_torch.train.loop import run_steps
 
 sys.path.insert(0, os.path.dirname(__file__))
@@ -140,15 +141,25 @@ def test_process_row_slice_matches_jax(monkeypatch, batch, world, rank):
     (dict(devices=CPU2), 2),
     (dict(n_devices=1, devices=CPU2), 1),
     (dict(n_devices=3, devices=CPU2), ValueError),
-    (dict(devices=[CPU2, CPU2]), NotImplementedError),
+    (dict(devices=[CPU2, CPU2]), "sp"),
     (dict(n_devices=2), ValueError)],
     ids=["listed", "first", "too-many", "sp", "no-card"])
 def test_data_mesh(monkeypatch, kw, want):
     """The listed devices (repeats allowed, as JAX's virtual devices), the
     first n of them as JAX's ``data_mesh(n)`` takes; more than exist raises
-    where JAX silently takes fewer; a 2-D grid (an 'sp' axis) raises; two
-    cards asked for where one is visible raise."""
+    where JAX silently takes fewer; a 2-D grid (an 'sp' axis) is not a 1-D
+    mesh and raises, naming ``data_sp_mesh``, which builds it as JAX's
+    ``data_sp_mesh(2, 2)``; two cards asked for where one is visible
+    raise."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    if want == "sp":
+        with pytest.raises(ValueError, match="data_sp_mesh"):
+            data_mesh(**kw)
+        got = data_sp_mesh(2, 2, [d for row in kw["devices"] for d in row])
+        assert got == tuple(tuple(torch.device(d) for d in row)
+                            for row in kw["devices"])
+        assert jmesh.data_sp_mesh(2, 2).devices.shape == (2, 2)
+        return
     if isinstance(want, int):
         got = data_mesh(**kw)
         assert got == (torch.device("cpu"),) * want
@@ -343,7 +354,9 @@ def test_engine_mesh_generate_batch_on_first_device(gen_params):
 def test_engine_mesh_refusals(gen_params, case):
     """A chunk that does not split into the mesh's parts raises, as the JAX
     engine's; a device that disagrees with the mesh's first raises; a 2-D
-    mesh (an 'sp' axis of rows) raises and names ROADMAP."""
+    mesh (an 'sp' axis of rows) builds, and raises JAX's ValueError for a
+    mode that JAX refuses under sp (the module forward's K1 chain; served:
+    tests/test_torch_spatial_mesh.py)."""
     if case == "chunk":
         eng = _engine(gen_params, mesh=data_mesh(devices=CPU2))
         with pytest.raises(ValueError, match="not divisible"):
@@ -352,8 +365,11 @@ def test_engine_mesh_refusals(gen_params, case):
         with pytest.raises(ValueError, match="disagrees"):
             _engine(gen_params, device="cuda", mesh=data_mesh(devices=CPU2))
     else:
-        with pytest.raises(NotImplementedError, match="'sp'.*ROADMAP"):
-            _engine(gen_params, mesh=[CPU2, CPU2])
+        eng = _engine(gen_params, mesh=[CPU2, CPU2])
+        assert (eng.sp, eng.forward_impl, eng.trunk) == (2, "packed", "xla")
+        with pytest.raises(ValueError, match="only trunk='xla' partitions"):
+            _engine(gen_params, mesh=[CPU2, CPU2], forward="module",
+                    trunk="chain")
 
 
 # ------------------------------------------------------------------- (f)

@@ -364,9 +364,10 @@ def test_remat_auto_falls_back_on_oom(tmp_path, monkeypatch, capsys):
     real = tloop.make_train_step
     built = []
 
-    def flaky(cfg, loss_cfg, *, remat, n_real=None):
+    def flaky(cfg, loss_cfg, *, remat, n_real=None, sp_devices=None):
         built.append(remat)
-        step = real(cfg, loss_cfg, remat=remat, n_real=n_real)
+        step = real(cfg, loss_cfg, remat=remat, n_real=n_real,
+                    sp_devices=sp_devices)
         if remat:
             return step
 

@@ -15,8 +15,9 @@ def train_oom_once(device, args):
     process)."""
     real = tloop.make_train_step
 
-    def flaky(cfg, loss_cfg, *, remat, n_real=None):
-        step = real(cfg, loss_cfg, remat=remat, n_real=n_real)
+    def flaky(cfg, loss_cfg, *, remat, n_real=None, sp_devices=None):
+        step = real(cfg, loss_cfg, remat=remat, n_real=n_real,
+                    sp_devices=sp_devices)
         if remat:
             return step
 
