@@ -20,13 +20,20 @@ drives the serving path the way a user does, at full model width:
   3. K1 (residual_chain) against its plain version on a (16, 130, 130, 256)
      carry: k = 3 and k = 1, pad 1 and pad 0, fp32 and bf16;
   4. two seeded ResNet-9 + CBAM generators (1 channel, base 64) in
-     DualGeneratorEngine.run_patient on a 32-slice 512^2 chest phantom
-     with chunk 16: the launch counters must show every K1 and K2 call of
-     the serving path; fp32 through the kernels must match the fp32 plain
-     path to 1 stored unit on >= 99.9% of voxels; the bf16 kernel path's
-     |dHU| to the fp32 plain path and both paths' slices/s are printed;
+     DualGeneratorEngine.run_patient (forward="module", trunk "chain") on a
+     32-slice 512^2 chest phantom with chunk 16: the launch counters must
+     show every K1 and K2 call of the serving path; fp32 through the
+     kernels must match the fp32 plain path to 1 stored unit on >= 99.9% of
+     voxels; the bf16 kernel path's |dHU| to the fp32 plain path and both
+     paths' slices/s are printed; every phase that measures the module
+     forward names forward="module" (4, 4q, 4m, 4k's and 4kq's reference,
+     8k's module engines, 10s, 10p's module reference) or a module trunk
+     (7, 7r, 10t: --trunk tail|plain), or gen_forward="module" (10q);
   5. the port's generate CLI on one synthetic 32-slice 512^2 DICOM patient
-     with .pth checkpoints, read back from disk;
+     with .pth checkpoints, read back from disk: its engine, built with no
+     forward (the CLI has no flag for it), serves packed chain3 on the
+     card, as the JAX engine does on its accelerator: exact packed launch
+     counts (K1 12, K2 20 of which 12 with phases > 1);
   6. the training kernels against their plain versions at the training
      shapes (N = 8): K3 (instance_norm_bwd: K2's statistics launch, the
      gradient sums, the apply, on K2's tile plan) on x (8, 128, 128, 256),
@@ -63,28 +70,32 @@ drives the serving path the way a user does, at full model width:
      the bf16 engine (generate_batch stored outputs; run_patient); then
      trunk="tail" at quant="trunk" with exact K2-int8 and K4 counts and its
      slices/s with K4 on its route and on the tiled one (3% slack);
-  5q. the generate CLI with --quant trunk, read back from disk;
+  5q. the generate CLI with --quant trunk (packed chain3 at quant
+     "trunk", its exact launch counts), read back from disk;
   2k. K2 with phases at the packed forward's three phase-pooled norms: the
      stem (16, 256, 256, 256) and up1 (16, 128, 128, 512) with phases 4,
      up2 (16, 128, 128, 1024) with phases 16, bf16 and fp32, against the
      plain version, timed beside it and its bound;
-  4k. the engine at forward="packed" (bf16, the phase-4 generators and
-     phantom) for trunks chain3, mega, mono, pallas and xla: exact launch
+  4k. the engine built with no forward and no trunk (the default; it must
+     resolve to packed chain3) and forward="packed" at mega, mono, pallas
+     and xla (bf16, the phase-4 generators and phantom): exact launch
      counts (chain3: K1 12, K2 20 of which 12 with phases > 1), each series
      against the module forward's (|dHU| mean / p99 / max, share within 1
-     stored unit; a mean above 25 HU fails), fp32 packed chain3 against
-     fp32 module plain (1 stored unit on 99.9%), slices/s in rounds that
-     alternate the module forward and the five trunks, one profiled
-     patient of packed chain3;
+     stored unit; a mean above 25 HU fails), the default's also against
+     phase 4's bf16 module series, the fp32 default against fp32 module
+     plain (1 stored unit on 99.9%), slices/s in rounds that alternate the
+     module forward and the five trunks, one profiled patient of the
+     default;
   4kq. forward="packed" at quant="trunk" and "full" under chain3 and under
      xla (the XLA trunk's per-sample dynamic requant): exact counts, raw
      and final taps against the bf16 module engine (phase 4q's bound),
      slices/s in alternating rounds;
   8k. a seeded generator pair without CBAM through the module forward
      (trunk "auto": plain), the module forward with fused_norm (the 18
-     trunk norms on K2: 72 launches a patient) and the packed forward (its
-     XLA trunk): exact counts, fp32 series within 1 stored unit of the
-     plain module forward on 99.9%, bf16 |dHU|, slices/s;
+     trunk norms on K2: 72 launches a patient) and the engine built with
+     no forward (packed, nominal chain3, run on its XLA trunk): exact
+     counts, fp32 series within 1 stored unit of the plain module forward
+     on 99.9%, bf16 |dHU|, slices/s;
   7. the port's training CLI on a synthetic 512^2 chest-phantom patient
      tree with mask generation at SOFT_TISSUE (3 input channels): 9 blocks,
      base 64, batch 8, bf16, trunk="tail", 7 steps (s/step: the median of
@@ -94,13 +105,15 @@ drives the serving path the way a user does, at full model width:
      every loss must be finite. The same steps then run
      with trunk="plain" from the same init and batches; both first-step
      losses, their difference, s/step, the peak memory and the remat mode
-     are printed.
+     are printed. A named trunk trains on the module forward (the loop's
+     summary names the forward it ran).
 
-  7k. phase 7's tree with --gen_forward packed (CBAM, remat off, 7 steps):
+  7k. phase 7's tree through the training CLI with no --gen_forward and no
+     --trunk (CBAM, remat off, 7 steps): the loop resolved the packed step,
      finite losses, K2-K5 54 launches a step as the tail trunk's, s/step
      and peak memory beside phase 7's tail run; then a SOFT_TISSUE range
-     without CBAM with fused_norm (trunk "plain", 3 steps): K2 108 and K3
-     108 launches a step, no K4/K5.
+     without CBAM with fused_norm (the module forward, trunk "plain", 3
+     steps): K2 108 and K3 108 launches a step, no K4/K5.
 
   3m. K7 (conv3x3_in) and K8 (conv_block_tail), the mega trunk's kernels,
      against their plain versions on (16, 130, 130, 256), fp32 and bf16: K7
@@ -140,8 +153,9 @@ drives the serving path the way a user does, at full model width:
      the chain trunk's and both fidelity taps against the bf16 engine;
   8. the generate CLI serves phase 7's trained 3-channel SOFT_TISSUE
      snapshot with a seeded 2-channel LUNG generator on one synthetic 512^2
-     DICOM patient, masks generated and prefetched on the host: read back
-     from disk and equal to run_patient called directly;
+     DICOM patient, masks generated and prefetched on the host, on its
+     default engine (packed chain3, exact counts): read back from disk and
+     equal to run_patient of an engine built as the CLI builds it;
   7r. phase 7's tail run saved as the reference's checkpoint.pth.tar
      (trainer.py:580-596, with scheduler states), imported into a fresh
      state on the card (networks and Adam states bit for bit), then the
@@ -149,7 +163,7 @@ drives the serving path the way a user does, at full model width:
      the epoch continues at saved + 1, every Adam step count at saved + 1,
      finite losses, and K2-K5 launches a step equal to phase 7's;
   9w. the generate CLI with --write_working on phase 5's patient (bf16,
-     the phase-4 generators): the fast path's exact K1 and K2 counts,
+     the phase-4 generators): packed chain3's exact launch counts,
      raw/ equal to the source series, soft_tissue/ and lung/ equal to the
      generate_batch outputs it downloaded cast to the series dtype, and
      the final series within 1 stored unit of phase 5's on >= 99.9% of
@@ -197,8 +211,8 @@ drives the serving path the way a user does, at full model width:
      relative L2 over the weights, K2-K5 54 launches a step on each rank,
      seconds a step; the card's free memory is logged before spawning;
   10s. the engine with ``mesh=data_mesh(devices=[cuda:0, cuda:0])`` (two
-     replicas on this card) on phase 4's patient, bf16 chain, chunk 16 in
-     parts of 8: K1 24 and K2 40 launches, the series against one device
+     replicas on this card) on phase 4's patient, bf16 module chain, chunk
+     16 in parts of 8: K1 24 and K2 40 launches, the series against one device
      called on the same parts and against phase 4's series, fp32 replicas
      against one fp32 device, slices/s;
   10p. the (data, sp) mesh serving: the engine on data_sp_mesh(1, 2) and
@@ -773,7 +787,7 @@ def run_engine_phase(k1, k2, dev, st, lung, records):
     def engine(dtype, trunk):
         return DualGeneratorEngine(st, lung, img_size=SIZE,
                                    compute_dtype=dtype, device=dev,
-                                   trunk=trunk)
+                                   forward="module", trunk=trunk)
 
     def run(eng):
         t0 = time.perf_counter()
@@ -1522,7 +1536,8 @@ def run_mega_engine_phase(k1, k2, k7, dev, st, lung, records):
     def engine(trunk, quant=None, dtype=torch.bfloat16):
         return DualGeneratorEngine(st, lung, img_size=SIZE,
                                    compute_dtype=dtype, device=dev,
-                                   trunk=trunk, quant=quant)
+                                   forward="module", trunk=trunk,
+                                   quant=quant)
 
     def run(eng):
         t0 = time.perf_counter()
@@ -1651,7 +1666,8 @@ def run_quant_engine_phase(k1, k2, k4, dev, st, lung, records):
     def engine(quant, trunk="chain"):
         return DualGeneratorEngine(st, lung, img_size=SIZE,
                                    compute_dtype=torch.bfloat16, device=dev,
-                                   trunk=trunk, quant=quant)
+                                   forward="module", trunk=trunk,
+                                   quant=quant)
 
     def run(eng):
         t0 = time.perf_counter()
@@ -1901,11 +1917,30 @@ def agreement(label: str, got, ref, strict: bool) -> dict:
     return dict(share=share, mean=mean, p99=p99, max=mx)
 
 
-def run_packed_engine_phase(k1, k2, k4, k7, dev, st, lung, records):
-    """Phase 4k: forward="packed" at every trunk (bf16), exact launch
-    counts, each against the module forward's run_patient; fp32 packed
-    chain3 against the fp32 module plain path; rates in alternating rounds
-    beside the module forward; one profiled patient."""
+def default_engine(label: str, *args, **kw):
+    """A DualGeneratorEngine built with no forward and no trunk, as the
+    generate CLI builds it; fails unless it resolved to packed chain3."""
+    from ducosy_tpu_torch.infer.engine import DualGeneratorEngine
+
+    eng = DualGeneratorEngine(*args, **kw)
+    got = (eng.forward_impl, eng.trunk)
+    log(f"{label}: the engine built with no forward and no trunk resolved "
+        f"to {got}")
+    if got != ("packed", "chain3"):
+        fail(f"{label}: the default engine resolved to {got}, not "
+             "('packed', 'chain3')")
+    return eng
+
+
+def run_packed_engine_phase(k1, k2, k4, k7, dev, st, lung, module_series,
+                            records):
+    """Phase 4k: the engine built with no forward and no trunk (the
+    default: packed chain3) and forward="packed" at the other trunks
+    (bf16), exact launch counts, each against the module forward's
+    run_patient and the default against phase 4's module series
+    (``module_series``); the fp32 default against the fp32 module plain
+    path; rates in alternating rounds beside the module forward; one
+    profiled patient of the default."""
     import torch
 
     from ducosy_tpu_torch.infer.engine import DualGeneratorEngine
@@ -1914,14 +1949,18 @@ def run_packed_engine_phase(k1, k2, k4, k7, dev, st, lung, records):
     n_gens = 2 * -(-SLICES // N)
     engine = lambda dtype, **kw: DualGeneratorEngine(
         st, lung, img_size=SIZE, compute_dtype=dtype, device=dev, **kw)
+    default = lambda dtype: default_engine(
+        f"4k {str(dtype)[6:]}", st, lung, img_size=SIZE, compute_dtype=dtype,
+        device=dev)
     counters = packed_counters(k1, k2, k4, k7)
-    module = engine(torch.bfloat16, trunk="chain")
+    module = engine(torch.bfloat16, forward="module", trunk="chain")
     ref, _ = serve(module, vol)
     engines = {"module chain": module}
     launches = {}
     for trunk in PACKED_TRUNKS:
-        eng = engines[f"packed {trunk}"] = engine(
-            torch.bfloat16, forward="packed", trunk=trunk)
+        eng = engines[f"packed {trunk}"] = default(torch.bfloat16) \
+            if trunk == "chain3" else engine(torch.bfloat16,
+                                             forward="packed", trunk=trunk)
         serve(eng, vol)                       # warm-up: cuDNN autotune etc.
         zero_counts(counters, k2)
         out, _ = serve(eng, vol)              # the main path, counted
@@ -1934,13 +1973,17 @@ def run_packed_engine_phase(k1, k2, k4, k7, dev, st, lung, records):
         records[("packed_agreement", trunk)] = agreement(
             f"engine bf16 packed {trunk} vs bf16 module chain", out, ref,
             strict=False)
+        if trunk == "chain3":
+            records["default_vs_phase4"] = agreement(
+                "engine bf16 default (packed chain3) vs phase 4's bf16 "
+                "module chain series", out, module_series, strict=False)
     records["packed_launches"] = launches
-    out32, _ = serve(engine(torch.float32, forward="packed", trunk="chain3"),
+    out32, _ = serve(default(torch.float32), vol)
+    ref32, _ = serve(engine(torch.float32, forward="module", trunk="plain"),
                      vol)
-    ref32, _ = serve(engine(torch.float32, trunk="plain"), vol)
     records["packed_fp32"] = agreement(
-        "engine fp32 packed chain3 vs fp32 module plain", out32, ref32,
-        strict=True)
+        "engine fp32 default (packed chain3) vs fp32 module plain", out32,
+        ref32, strict=True)
     del out32, ref32
     records["packed_slices_per_s"] = rate_rounds(engines, vol, "bf16")
     rates = records["packed_slices_per_s"]
@@ -1968,7 +2011,7 @@ def run_packed_quant_phase(k1, k2, k4, k7, dev, st, lung, records):
         st, lung, img_size=SIZE, compute_dtype=torch.bfloat16, device=dev,
         **kw)
     counters = packed_counters(k1, k2, k4, k7)
-    ref = engine(trunk="chain")
+    ref = engine(forward="module", trunk="chain")
     ref_out, _ = serve(ref, vol)
     sub = vol[:N]
     raw_ref = ref.generate_batch(sub, 1.0, -1024.0)
@@ -2008,10 +2051,11 @@ def run_packed_quant_phase(k1, k2, k4, k7, dev, st, lung, records):
 def run_nocbam_serving_phase(k1, k2, k4, k7, dev, records):
     """Phase 8k: a seeded generator pair without CBAM (1 channel, base 64,
     9 blocks) through the module forward (trunk "auto": plain), the module
-    forward with fused_norm (the 18 trunk norms on K2) and the packed
-    forward (its XLA trunk): exact launch counts, the series against the
-    plain module forward (fp32: 1 stored unit on 99.9%; bf16: |dHU|),
-    rates in alternating rounds."""
+    forward with fused_norm (the 18 trunk norms on K2) and the engine built
+    with no forward (the default: packed, nominal chain3, run on its XLA
+    trunk): exact launch counts, the series against the plain module
+    forward (fp32: 1 stored unit on 99.9%; bf16: |dHU|), rates in
+    alternating rounds."""
     import torch
 
     from ducosy_tpu_torch.infer.engine import DualGeneratorEngine
@@ -2022,8 +2066,9 @@ def run_nocbam_serving_phase(k1, k2, k4, k7, dev, records):
     st, lung = (init_generator_state_dict(SEED + s, use_cbam=False)
                 for s in (13, 14))
     counters = packed_counters(k1, k2, k4, k7)
-    kinds = {"module plain": {}, "module fused_norm": {"fused_norm": True},
-             "packed": {"forward": "packed"}}
+    kinds = {"module plain": {"forward": "module"},
+             "module fused_norm": {"forward": "module", "fused_norm": True},
+             "packed": {}}
     norm_launches = {"module plain": 0, "module fused_norm": 2 * BLOCKS,
                      "packed": 0}
     outs, engines = {}, {}
@@ -2031,7 +2076,10 @@ def run_nocbam_serving_phase(k1, k2, k4, k7, dev, records):
         dname = str(dtype)[6:]
         for name, kw in kinds.items():
             eng = DualGeneratorEngine(st, lung, img_size=SIZE,
-                                      compute_dtype=dtype, device=dev, **kw)
+                                      compute_dtype=dtype, device=dev, **kw) \
+                if kw else default_engine(f"8k {dname}", st, lung,
+                                          img_size=SIZE, compute_dtype=dtype,
+                                          device=dev)
             serve(eng, vol)
             zero_counts(counters, k2)
             outs[(name, dname)], _ = serve(eng, vol)
@@ -2056,12 +2104,14 @@ def run_nocbam_serving_phase(k1, k2, k4, k7, dev, records):
 
 
 def run_packed_training_phase(k2, k4, tmp: Path, records):
-    """Phase 7k: phase 7's tree trained with gen_forward="packed" (CBAM
-    SOFT_TISSUE, batch 8, 512^2, bf16, remat off, TRAIN_STEPS steps + the
-    validation pass): finite losses, exact K2-K5 launches, s/step and peak
-    memory beside phase 7's tail run; then a SOFT_TISSUE range without
-    CBAM with fused_norm (trunk "plain": the 18 trunk norms on K2, K3 their
-    backward) for 3 steps: finite losses and exact K2/K3 launches."""
+    """Phase 7k: phase 7's tree trained by the training CLI with no
+    --gen_forward and no --trunk, which on a card runs the packed step
+    (CBAM SOFT_TISSUE, batch 8, 512^2, bf16, remat off, TRAIN_STEPS steps +
+    the validation pass): the forward the loop resolved, finite losses,
+    exact K2-K5 launches, s/step and peak memory beside phase 7's tail run;
+    then a SOFT_TISSUE range without CBAM with fused_norm (the module
+    forward's trunk "plain": the 18 trunk norms on K2, K3 their backward)
+    for 3 steps: finite losses and exact K2/K3 launches."""
     from ducosy_tpu_torch.cli import train
     from ducosy_tpu_torch.config import (SOFT_TISSUE, ModelConfig,
                                          TrainConfig, replace)
@@ -2075,7 +2125,10 @@ def run_packed_training_phase(k2, k4, tmp: Path, records):
     def launches():
         return {k: f.launches for k, f in counters.items()}
 
-    def check(label, out, secs, got, want, steps):
+    def check(label, out, secs, got, want, steps, forward):
+        if out["gen_forward"] != forward:
+            fail(f"{label}: the loop ran the {out['gen_forward']} forward, "
+                 f"not {forward}")
         losses = {k: v for k, v in out.items() if k.startswith("loss")
                   or k in ("contrast", "val_loss")}
         if not all(np.isfinite(v) for v in losses.values()):
@@ -2084,7 +2137,8 @@ def run_packed_training_phase(k2, k4, tmp: Path, records):
             fail(f"{label}: {len(out['step_seconds'])} steps run, remat "
                  f"fallback {out['oom_fallback']}")
         med = statistics.median(out["step_seconds"][1:])
-        log(f"{label}: {steps} steps + validation in {secs:.1f} s; step "
+        log(f"{label}: the {forward} forward, {steps} steps + validation "
+            f"in {secs:.1f} s; step "
             f"seconds {[round(t, 4) for t in out['step_seconds']]}, median "
             f"of steps 2-{steps} {med:.4f}; peak memory "
             f"{out['peak_memory_bytes'] / 2**30:.2f} GiB; launches {got} "
@@ -2103,7 +2157,7 @@ def run_packed_training_phase(k2, k4, tmp: Path, records):
         "--num_residual_blocks", str(BLOCKS), "--epochs", "1",
         "--max_steps_per_epoch", str(TRAIN_STEPS), "--resume", "",
         "--num_devices", "1", "--num_workers", "8",
-        "--gen_forward", "packed", "--remat", "off"])["soft_tissue"]
+        "--remat", "off"])["soft_tissue"]
     secs = time.perf_counter() - t0
     # the packed "pallas" trunk: K2 and K4 once a block a forward, K3 and K5
     # in each backward (6 forwards a step); validation runs the module
@@ -2111,8 +2165,8 @@ def run_packed_training_phase(k2, k4, tmp: Path, records):
     fwd, val = 6 * BLOCKS * TRAIN_STEPS, 2 * 6 * BLOCKS
     want = {"instance_norm": fwd + val, "instance_norm_bwd": fwd,
             "block_tail": fwd + val, "block_tail_bwd": fwd}
-    med = check("training gen_forward=packed remat=off", out, secs,
-                launches(), want, TRAIN_STEPS)
+    med = check("training CLI default (gen_forward auto) remat=off", out,
+                secs, launches(), want, TRAIN_STEPS, "packed")
     tail = records.get("s_per_step", {}).get(("tail", "auto"))
     log(f"training s/step packed {med:.4f} beside phase 7's tail "
         f"{tail if tail is None else round(tail, 4)} (batch {TRAIN_N} x "
@@ -2141,13 +2195,31 @@ def run_packed_training_phase(k2, k4, tmp: Path, records):
             "instance_norm_bwd": 6 * norms * steps, "block_tail": 0,
             "block_tail_bwd": 0}
     med = check("training no-CBAM fused_norm remat=off", out, secs,
-                launches(), want, steps)
+                launches(), want, steps, "module")
     records["fused_norm_train"] = dict(s_per_step=med,
                                        peak=out["peak_memory_bytes"],
                                        launches=launches())
 
 
-def run_cli_phase(k1, k2, st, lung, flags=()):
+def cli_quant(flags) -> str | None:
+    """The --quant mode among generate CLI ``flags`` (None without)."""
+    flags = list(flags)
+    return flags[flags.index("--quant") + 1] if "--quant" in flags else None
+
+
+def check_cli_launches(label: str, counters: dict, k2, flags=()) -> dict:
+    """The launches of one 32-slice patient through the generate CLI's
+    default engine, packed chain3 (``flags`` may name a quant mode), read
+    from ``counters`` and held to packed_launch_want."""
+    got = read_counts(counters, k2)
+    want = packed_launch_want("chain3", cli_quant(flags),
+                              2 * -(-SLICES // N))
+    if got != want:
+        fail(f"{label}: launches {got} != {want} (packed chain3)")
+    return got
+
+
+def run_cli_phase(counters, k2, st, lung, flags=()):
     import torch
 
     from ducosy_tpu_torch.cli import generate
@@ -2161,8 +2233,7 @@ def run_cli_phase(k1, k2, st, lung, flags=()):
             paths[name] = str(Path(tmp, f"{name}.pth"))
             torch.save({k: torch.from_numpy(v) for k, v in sd.items()},
                        paths[name])
-        k1.residual_chain.launches = 0
-        k2.instance_norm.launches = 0
+        zero_counts(counters, k2)
         t0 = time.perf_counter()
         done = generate.main([
             "--input_dir_root", str(Path(tmp, "input")),
@@ -2171,16 +2242,15 @@ def run_cli_phase(k1, k2, st, lung, flags=()):
             "--slice_batch", str(N), "--soft_tissue_model", paths["st"],
             "--lung_model", paths["lung"], *flags])
         secs = time.perf_counter() - t0
-        n_chunks = -(-SLICES // N)
-        got = (k1.residual_chain.launches, k2.instance_norm.launches)
-        if done != 1 or got != (2 * 3 * n_chunks,
-                                2 * K2_PER_GEN[None] * n_chunks):
-            fail(f"CLI: {done} patients, launches {got}")
+        if done != 1:
+            fail(f"CLI: {done} patients")
+        got = check_cli_launches(f"CLI {' '.join(flags) or '(bf16)'}",
+                                 counters, k2, flags)
         out = read_series(Path(tmp, "output", "Smoke", "patient00"),
                           "DuCoSyGAN sCECT v2", "CLI")
     log(f"CLI {' '.join(flags) or '(bf16)'}: 1 patient, {SLICES} slices "
         f"written and read back in {secs:.2f} s (incl. engine build), "
-        f"launches K1 {got[0]} K2 {got[1]}")
+        f"served packed chain3; launches {got}")
     return out
 
 
@@ -2663,6 +2733,9 @@ def run_training_phase(k2, k4, tmp: Path, records):
             "--num_workers", "8", "--trunk", trunk, "--remat", remat])
         out = out["soft_tissue"]
         secs = time.perf_counter() - t0
+        if out["gen_forward"] != "module":
+            fail(f"training --trunk {trunk}: the loop ran the "
+                 f"{out['gen_forward']} forward, not the module forward")
         launches = dict(zip(names, (f.launches for f in counters)))
         losses = {k: v for k, v in out.items() if k.startswith("loss")
                   or k in ("contrast", "val_loss")}
@@ -2722,17 +2795,16 @@ def run_training_phase(k2, k4, tmp: Path, records):
     records["train_steps"] = {k: v["step_seconds"] for k, v in results.items()}
 
 
-def run_masked_cli_phase(k1, k2, dev, tmp: Path):
+def run_masked_cli_phase(counters, k2, dev, tmp: Path):
     """Phase 8: the generate CLI serves phase 7's trained 3-channel
     SOFT_TISSUE snapshot with a seeded 2-channel LUNG generator on one
-    synthetic 512^2 DICOM patient; masks are generated and prefetched on
-    the host."""
+    synthetic 512^2 DICOM patient (its default engine: packed chain3);
+    masks are generated and prefetched on the host."""
     import torch
 
     from ducosy_tpu_torch.cli import generate
     from ducosy_tpu_torch.dicom import dcmread
     from ducosy_tpu_torch.dicom.codec import new_ct_dataset
-    from ducosy_tpu_torch.infer.engine import DualGeneratorEngine
     from ducosy_tpu_torch.models.convert import (init_generator_state_dict,
                                                  load_torch_state_dict)
 
@@ -2752,7 +2824,7 @@ def run_masked_cli_phase(k1, k2, dev, tmp: Path):
                             series_description="POST VUE")
         ds.set_pixel_array(sl.astype(np.uint16))
         ds.save_as(str(ncct / f"{i:04d}.dcm"))
-    k1.residual_chain.launches = k2.instance_norm.launches = 0
+    zero_counts(counters, k2)
     t0 = time.perf_counter()
     done = generate.main([
         "--input_dir_root", str(tmp / "input8"),
@@ -2761,19 +2833,17 @@ def run_masked_cli_phase(k1, k2, dev, tmp: Path):
         "--slice_batch", str(N), "--soft_tissue_model", str(st_path),
         "--lung_model", str(lung_path)])
     secs = time.perf_counter() - t0
-    n_chunks = -(-SLICES // N)
-    got = (k1.residual_chain.launches, k2.instance_norm.launches)
-    if done != 1 or got != (2 * 3 * n_chunks,
-                            2 * K2_PER_GEN[None] * n_chunks):
-        fail(f"masked CLI: {done} patients, launches {got}")
+    if done != 1:
+        fail(f"masked CLI: {done} patients")
+    got = check_cli_launches("masked CLI", counters, k2)
     files = sorted((tmp / "output8" / "Smoke" / "patient00").glob("*.dcm"))
     if len(files) != SLICES:
         fail(f"masked CLI wrote {len(files)} slices, expected {SLICES}")
     out = np.stack([dcmread(str(f)).pixel_array for f in files])
     if out.shape != vol.shape or out.dtype != np.uint16:
         fail(f"masked CLI output {out.dtype} {out.shape}")
-    eng = DualGeneratorEngine(load_torch_state_dict(str(st_path)), lung,
-                              img_size=SIZE, device=dev)
+    eng = default_engine("8", load_torch_state_dict(str(st_path)), lung,
+                         img_size=SIZE, device=dev)
     if (eng.st_channels, eng.lung_channels) != (3, 2):
         fail(f"phase 8 checkpoints have {eng.st_channels}, "
              f"{eng.lung_channels} input channels, expected 3 and 2")
@@ -2786,9 +2856,9 @@ def run_masked_cli_phase(k1, k2, dev, tmp: Path):
         fail(f"masked CLI series differs from run_patient: max |d| "
              f"{int(d.max())}, equal on {float(np.mean(d == 0)):.6f}")
     log(f"CLI, trained 3-channel SOFT_TISSUE + seeded 2-channel LUNG: "
-        f"{SLICES} slices written, read back and equal to run_patient, in "
-        f"{secs:.2f} s (incl. engine build and host masks); launches K1 "
-        f"{got[0]} K2 {got[1]}; mask voxels set: "
+        f"{SLICES} slices written, read back and equal to run_patient of "
+        f"the default engine, in {secs:.2f} s (incl. engine build and host "
+        f"masks); served packed chain3, launches {got}; mask voxels set: "
         + ", ".join(f"{k} {int(v.sum())}" for k, v in masks.items()))
 
 
@@ -2914,10 +2984,12 @@ def within_one(got, ref) -> tuple[float, int]:
     return float(np.mean(d <= 1)), int(d.max())
 
 
-def run_generate_working(k1, k2, st, lung, tmp: Path, tag: str, flags):
+def run_generate_working(counters, k2, st, lung, tmp: Path, tag: str,
+                         flags):
     """The generate CLI with --write_working (+ ``flags``) on phase 5's
-    patient under ``tmp``: exact fast-path K1/K2 counts, the three working
-    series, and the generate_batch outputs it downloaded (captured)."""
+    patient under ``tmp``: exact launch counts of its default engine
+    (packed chain3), the three working series, and the generate_batch
+    outputs it downloaded (captured)."""
     import torch
 
     from ducosy_tpu_torch.cli import generate
@@ -2938,7 +3010,7 @@ def run_generate_working(k1, k2, st, lung, tmp: Path, tag: str, flags):
         captured.append(out)
         return out
 
-    k1.residual_chain.launches = k2.instance_norm.launches = 0
+    zero_counts(counters, k2)
     DualGeneratorEngine.generate_batch = capture
     t0 = time.perf_counter()
     try:
@@ -2953,12 +3025,10 @@ def run_generate_working(k1, k2, st, lung, tmp: Path, tag: str, flags):
     finally:
         DualGeneratorEngine.generate_batch = original
     secs = time.perf_counter() - t0
-    n_chunks = -(-SLICES // N)
-    got = (k1.residual_chain.launches, k2.instance_norm.launches)
-    want = (2 * 3 * n_chunks, 2 * K2_PER_GEN[None] * n_chunks)
-    if done != 1 or len(captured) != 1 or got != want:
+    if done != 1 or len(captured) != 1:
         fail(f"{tag}: {done} patients, {len(captured)} generate_batch "
-             f"calls, launches {got} != {want}")
+             "calls")
+    got = check_cli_launches(f"{tag} CLI", counters, k2)
     out = captured[0]
     wdir = tmp / f"working_{tag}" / "Smoke" / "patient00"
     raw = read_series(wdir / "raw", "POST VUE", tag)
@@ -2973,14 +3043,15 @@ def run_generate_working(k1, k2, st, lung, tmp: Path, tag: str, flags):
     log(f"CLI --write_working {' '.join(flags)}: 1 patient, {SLICES} "
         f"slices, working series raw/soft_tissue/lung and the final series "
         f"written and read back in {secs:.2f} s (incl. engine build); "
-        f"launches K1 {got[0]} K2 {got[1]}")
+        f"served packed chain3, launches {got}")
     return vol, out, tmp / f"output_{tag}" / "Smoke" / "patient00"
 
 
-def run_working_phase(k1, k2, st, lung, tmp: Path, fast_series, gen):
+def run_working_phase(counters, k2, st, lung, tmp: Path, fast_series,
+                      gen):
     """Phase 9w: --write_working, overwrite synthesis; the final series
     against phase 5's fast-path series."""
-    vol, out, final_dir = run_generate_working(k1, k2, st, lung, tmp,
+    vol, out, final_dir = run_generate_working(counters, k2, st, lung, tmp,
                                                "overwrite", ())
     final = read_series(final_dir, "DuCoSyGAN sCECT v2", "9w")
     share, dmax = within_one(final, fast_series)
@@ -2992,7 +3063,7 @@ def run_working_phase(k1, k2, st, lung, tmp: Path, fast_series, gen):
     gen.update(vol=vol, out=out, final=final)
 
 
-def run_additive_phase(k1, k2, st, lung, tmp: Path, gen):
+def run_additive_phase(counters, k2, st, lung, tmp: Path, gen):
     """Phase 9a: --synthesis_mode additive; the final series against the
     port's additive_composite + synthesize_volume on the CPU, from the
     generate_batch outputs the CLI downloaded."""
@@ -3001,7 +3072,8 @@ def run_additive_phase(k1, k2, st, lung, tmp: Path, gen):
     from ducosy_tpu_torch.infer import synthesis
 
     vol, out, final_dir = run_generate_working(
-        k1, k2, st, lung, tmp, "additive", ("--synthesis_mode", "additive"))
+        counters, k2, st, lung, tmp, "additive",
+        ("--synthesis_mode", "additive"))
     final = read_series(final_dir, "DuCoSyGAN sCECT v3", "9a")
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
     slope, intercept = 1.0, -1024.0            # the phantom's rescale
@@ -3696,7 +3768,8 @@ def run_dp_serving_phase(k1, k2, devices, st, lung, ref, label: str):
 
     def engine(dtype, **kw):
         return DualGeneratorEngine(st, lung, img_size=SIZE,
-                                   compute_dtype=dtype, trunk="chain", **kw)
+                                   compute_dtype=dtype, forward="module",
+                                   trunk="chain", **kw)
 
     def run(eng, chunk=N):
         t0 = time.perf_counter()
@@ -3837,7 +3910,8 @@ def run_sp_serving_phase(counters, k2, meshes: dict, st, lung, records,
                       f"{name} module")
         agreement(f"{label} {name} bf16 module forward (plain trunk) vs "
                   "the one-device module plain trunk", out,
-                  serve(one(torch.bfloat16, trunk="plain"), vol)[0],
+                  serve(one(torch.bfloat16, forward="module",
+                            trunk="plain"), vol)[0],
                   strict=False)
         rates = rate_rounds(engines, vol, f"{label} bf16")
         del out
@@ -3876,8 +3950,9 @@ def run_sp_training_phase(counters, k2, row, data: Path, records,
     model = ModelConfig(num_residual_blocks=BLOCKS)
     init = init_state_dicts(SEED + 40, SOFT_TISSUE, model)
     batches = dp_batches(data)
+    # the module forward on both sides, as the plain step it is held to
     cfg = replace(TrainConfig(), img_size=SIZE, batch_size=TRAIN_N,
-                  compute_dtype="float32")
+                  compute_dtype="float32", gen_forward="module")
     row = tuple(row)
     benchmark = torch.backends.cudnn.benchmark
     torch.backends.cudnn.benchmark = False
@@ -4210,11 +4285,13 @@ def main() -> None:
     engine_out = phase("4", run_engine_phase, k1, k2, dev, st, lung, records)
     phase("4q", run_quant_engine_phase, k1, k2, k4, dev, st, lung, records)
     phase("4m", run_mega_engine_phase, k1, k2, k7, dev, st, lung, records)
-    fast_series = phase("5", run_cli_phase, k1, k2, st, lung)
-    phase("5q", run_cli_phase, k1, k2, st, lung, flags=("--quant", "trunk"))
+    serving = packed_counters(k1, k2, k4, k7)
+    fast_series = phase("5", run_cli_phase, serving, k2, st, lung)
+    phase("5q", run_cli_phase, serving, k2, st, lung,
+          flags=("--quant", "trunk"))
     phase("2k", check_k2p_packed, k2, dev, records)
     phase("4k", run_packed_engine_phase, k1, k2, k4, k7, dev, st, lung,
-          records)
+          engine_out, records)
     phase("4kq", run_packed_quant_phase, k1, k2, k4, k7, dev, st, lung,
           records)
     phase("8k", run_nocbam_serving_phase, k1, k2, k4, k7, dev, records)
@@ -4225,14 +4302,14 @@ def main() -> None:
         phase("7", run_training_phase, k2, k4, Path(run_dir), records)
         phase("7k", run_packed_training_phase, k2, k4, Path(run_dir),
               records)
-        phase("8", run_masked_cli_phase, k1, k2, dev, Path(run_dir))
+        phase("8", run_masked_cli_phase, serving, k2, dev, Path(run_dir))
         phase("7r", run_resume_phase, k2, k4, dev, Path(run_dir), records)
         with tempfile.TemporaryDirectory() as gen_dir:
             gen = {}
-            phase("9w", run_working_phase, k1, k2, st, lung, Path(gen_dir),
-                  fast_series, gen)
-            phase("9a", run_additive_phase, k1, k2, st, lung, Path(gen_dir),
-                  gen)
+            phase("9w", run_working_phase, serving, k2, st, lung,
+                  Path(gen_dir), fast_series, gen)
+            phase("9a", run_additive_phase, serving, k2, st, lung,
+                  Path(gen_dir), gen)
             phase("9p", run_postprocess_phase, dev, gen)
             phase("9e", run_calculate_phase, dev, Path(gen_dir))
             phase("11", run_masking_phase, dev, Path(gen_dir))

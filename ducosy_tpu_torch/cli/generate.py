@@ -5,7 +5,10 @@
         --soft_tissue_model st.pth --lung_model lung.pth
 
 Same flags as the JAX CLI, plus ``--device`` (default ``cuda``; the run
-raises if no card is visible). Two modes, as the JAX CLI's:
+raises if no card is visible). The engine resolves its forward as the
+JAX engine does: the packed forward with the chain3 trunk on a card, the
+module forward on the CPU (``infer/engine.py``). Two modes, as the JAX
+CLI's:
   - the fast path (default): every patient's NCCT series runs through
     ``DualGeneratorEngine.run_patient`` and the final sCECT v2 series is
     written. Patient N+1's DICOM decode runs in an io thread while patient
@@ -309,6 +312,7 @@ def main(argv=None):
               "--write_working only (as in the JAX CLI); serving the fast "
               "path (sCECT v2)")
     engine = load_engine(args)
+    print(f"generator forward: {engine.forward_impl}, trunk {engine.trunk}")
     total = 0
     for dataset_name in args.dataset_names:
         input_dir = os.path.join(args.input_dir_root, dataset_name)

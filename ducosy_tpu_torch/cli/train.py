@@ -5,10 +5,14 @@
 Trains the soft-tissue and/or lung CycleGAN with the fixed per-range HU,
 window and mask settings. Same flags as the JAX CLI, plus ``--device``
 (default ``cuda``; the run raises if no card is visible, ``--device cpu``
-runs the plain PyTorch path), ``--trunk`` (``tail``, the K2-K5 kernels, or
-``plain``; ``auto`` is ``tail``, or ``plain`` for a range without CBAM or
-with ``--fused_norm``), ``--gen_forward`` (``packed``: the space-to-depth
-forward), ``--fused_norm`` (the plain trunk's norms on K2/K3), ``--remat``,
+runs the plain PyTorch path), ``--gen_forward`` (the step's generator
+forward: ``auto``, the default, is the space-to-depth ``packed`` forward on
+a card, as the JAX loop runs on its accelerator, and the ``module``
+forward on the CPU or where ``--trunk`` or ``--fused_norm`` names a module
+trunk), ``--trunk`` (the module forward's trunk, which validation runs:
+``tail``, the K2-K5 kernels, or ``plain``; ``auto`` is ``tail``, or
+``plain`` for a range without CBAM or with ``--fused_norm``),
+``--fused_norm`` (the plain trunk's norms on K2/K3), ``--remat``,
 ``--max_steps_per_epoch`` and the widths ``--base_channels`` /
 ``--disc_base_channels``.
 
@@ -62,11 +66,13 @@ def parse_args(argv=None):
     p.add_argument("--trunk", type=str, default="auto",
                    choices=["auto", "tail", "plain"],
                    help="the module forward's trunk (default: tail, or "
-                        "plain without CBAM or with --fused_norm)")
+                        "plain without CBAM or with --fused_norm); naming "
+                        "one trains on the module forward")
     p.add_argument("--gen_forward", type=str, default="auto",
                    choices=["auto", "module", "packed"],
-                   help="the train step's generator forward: the module "
-                        "forward (auto) or the space-to-depth packed one")
+                   help="the train step's generator forward (auto: the "
+                        "space-to-depth packed one on a card, the module "
+                        "forward on the CPU or with --trunk/--fused_norm)")
     p.add_argument("--fused_norm", action="store_true",
                    help="the plain trunk's 18 norms on K2 (backward K3)")
     p.add_argument("--remat", type=str, default="auto",
@@ -127,6 +133,7 @@ def _train(device: torch.device, args) -> dict:
             max_epochs=args.max_epochs,
             max_steps_per_epoch=args.max_steps_per_epoch)
         say(f"=== {target} done: val_loss={out[target]['val_loss']} "
+            f"gen_forward={out[target]['gen_forward']} "
             f"remat={out[target]['remat']} ===")
     return out
 

@@ -122,7 +122,9 @@ class TrainConfig:
     # of device memory; "on"/"off" force it.
     remat: str = "auto"
     # the train step's generator forward: "packed" is the space-to-depth
-    # forward (models/fused.py); "auto" and "module" the module forward
+    # forward (models/fused.py), "module" the module forward; "auto" is
+    # "packed" on a card (img_size % 4 == 0) unless a module trunk or
+    # fused_norm is named, else "module" (resolve.training_forward)
     gen_forward: str = "auto"
     # the JAX package's profiler-trace window (unused by the port)
     profile_dir: str = ""

@@ -29,7 +29,8 @@ part of a chunk on one mesh row: the resize, normalization, mask channels,
 composite and postprocess whole on the row's first device, the generators
 on row bands over the row's devices (``models/banded.py``), which divides
 their activation footprint. It resolves and refuses as the JAX engine
-(ducosy_tpu/infer/engine.py:56-93): ``quant``, ``trunk_int8``,
+(ducosy_tpu/infer/engine.py:56-93), on a card and on the CPU alike:
+``quant``, ``trunk_int8``,
 ``fused_norm`` and any trunk but "auto"/"xla" raise; ``forward="auto"`` is
 the packed forward at ``trunk="xla"`` when ``img_size`` divides by 4, else
 the module forward, which an explicit ``forward="module"`` also serves (its
@@ -46,20 +47,21 @@ as int8; ``prefetch_masks`` starts that in a background thread so the next
 patient's masks overlap this patient's device work. One model may be
 mask-conditioned and the other not.
 
-``forward`` picks the generator forward, as the JAX engine's
-(ducosy_tpu/infer/engine.py:44-222): "module" runs
-``models.generator.Generator`` ("auto", the default, is "module" but under
-an sp axis), "packed" the space-to-depth
-forward of ``models/fused.py`` with its weights laid out once a device.
-``trunk`` under "module": "chain" (K1), "mega" (K7 + K8 per block), "tail"
-(the training trunk) or "plain"; "auto" (the default) is "chain", or
-"plain" for a checkpoint without CBAM or with ``fused_norm`` (the 18 trunk
-norms on K2). Under "packed" it takes the JAX names: "xla", "pallas",
-"mega", "mono", "chain{k}", and "auto", which is "chain3" on a card ("mono"
-below 3 blocks) and the XLA trunk on the CPU; a checkpoint without CBAM
-runs the XLA trunk. A trunk that contains the CBAM gates refuses a
-checkpoint without them, a JAX trunk name needs forward="packed", as the
-JAX engine refuses them; ``fused_norm`` is read by the module forward only.
+``forward`` picks the generator forward and ``trunk`` its trunk, resolved
+as the JAX engine resolves them (``resolve.serving_forward``;
+ducosy_tpu/infer/engine.py:150-222): "auto", the default, is "packed", the
+space-to-depth forward of ``models/fused.py`` with its weights laid out
+once a device, on a card when ``img_size`` divides by 4, with the trunk
+"chain3" ("mono" below 3 blocks); on the CPU it is "module",
+``models.generator.Generator``. Under "packed" the trunk takes the JAX
+names: "xla", "pallas", "mega", "mono", "chain{k}" ("chain" is chain1),
+and "auto" ("chain3" on a card, the XLA trunk on the CPU); a checkpoint
+without CBAM runs the XLA trunk, and a trunk with the CBAM gates named for
+it raises. The module forward, named with ``forward="module"`` or the
+port's own trunk names "tail" and "plain", takes "chain" (K1), "mega" (K7
++ K8 per block), "tail" (the training trunk) or "plain"; its "auto" is
+"chain", or "plain" for a checkpoint without CBAM or with ``fused_norm``
+(the 18 trunk norms on K2), which only the module forward reads.
 
 bf16 is the serving default; fp32 is the parity mode and switches cuDNN
 and matmul TF32 off (process-wide) so fp32 means fp32.
@@ -69,7 +71,8 @@ serving, as the JAX engine's (ducosy_tpu/infer/engine.py:158-179): in the
 packed forward as the JAX package runs it (the XLA trunk's convs by
 per-sample dynamic requantization), and in the true-layout module forward
 (models/generator.py), which the JAX engine refuses and the port keeps for
-CBAM checkpoints. The int8 weights are quantized once from the state
+CBAM checkpoints: under "auto" a card serves them packed, the CPU on the
+module forward. The int8 weights are quantized once from the state
 dict's fp32 values.
 """
 from __future__ import annotations
@@ -97,10 +100,10 @@ from ducosy_tpu_torch.models.convert import (
 from ducosy_tpu_torch.models.fused import PackedGenerator
 from ducosy_tpu_torch.models.generator import Generator
 from ducosy_tpu_torch.ops import hu
-from ducosy_tpu_torch.ops.quant import INT8_NORM_SCALE, check_quant
+from ducosy_tpu_torch.ops.quant import INT8_NORM_SCALE
 from ducosy_tpu_torch.ops.resize import resize_hw
 from ducosy_tpu_torch.parallel.mesh import data_mesh, mesh_rows
-from ducosy_tpu_torch.parallel.spatial import GROUP
+from ducosy_tpu_torch.resolve import serving_forward
 
 
 class DualGeneratorEngine:
@@ -142,13 +145,15 @@ class DualGeneratorEngine:
                 raise ValueError(f"device={named} disagrees with the mesh's "
                                  f"first device {first}")
         self.device = self.mesh[0]
-        if self.sp > 1:
-            forward, trunk = self._resolve_sp(forward, trunk, quant,
-                                              trunk_int8, fused_norm,
-                                              img_size)
-        if quant is None and trunk_int8:
-            quant = "trunk"
-        self.quant = check_quant(quant)
+        sds = (st_sd, lung_sd)
+        self.forward_impl, self.trunk, quant = serving_forward(
+            forward, trunk, quant=quant, trunk_int8=trunk_int8,
+            fused_norm=fused_norm,
+            cbam=all(state_dict_has_cbam(sd) for sd in sds),
+            blocks=min(state_dict_blocks(sd) for sd in sds),
+            img_size=img_size, sp=self.sp,
+            on_card=self.device.type == "cuda")
+        self.quant = quant
         if quant:
             # as the JAX engine names it; DUCOSY_INT8_SCALE moves it
             self.quant_calibration = f"static-{INT8_NORM_SCALE:g}sigma"
@@ -176,8 +181,6 @@ class DualGeneratorEngine:
             torch.backends.cuda.matmul.allow_tf32 = False
         self.st_range, self.lung_range = st_range, lung_range
         self.img_size = img_size
-        self.forward_impl, self.trunk = self._resolve(
-            forward, trunk, (st_sd, lung_sd), img_size)
         self.fused_norm = fused_norm
 
         def build(sd, row):
@@ -202,57 +205,6 @@ class DualGeneratorEngine:
         self.replicas = [(build(st_sd, r), build(lung_sd, r))
                          for r in self.rows]
         self.st_generator, self.lung_generator = self.replicas[0]
-
-    def _resolve_sp(self, forward, trunk, quant, trunk_int8, fused_norm,
-                    img_size):
-        """(forward, trunk) under an sp axis, as the JAX engine resolves
-        and refuses them (ducosy_tpu/infer/engine.py:56-93)."""
-        if quant or trunk_int8 or fused_norm:
-            raise ValueError(
-                "spatial ('sp') sharding partitions the H axis, which the "
-                "kernels and the quantized modes don't support: serve those "
-                "on one device or over a pure 'data' mesh")
-        if trunk not in ("auto", "xla"):
-            raise ValueError(
-                f"trunk={trunk!r} is a kernel path; under sp sharding only "
-                "trunk='xla' partitions")
-        if forward == "auto":
-            forward = "packed" if img_size % 4 == 0 else "module"
-        if forward == "packed":
-            trunk = "xla"
-        if img_size % GROUP or img_size // GROUP < self.sp:
-            raise ValueError(
-                f"img_size {img_size} under sp = {self.sp}: the row bands "
-                f"need img_size divisible by {GROUP} and at least {GROUP} "
-                "rows a band")
-        return forward, trunk
-
-    def _resolve(self, forward: str, trunk: str, sds, img_size: int):
-        """(forward, trunk) as the JAX engine resolves and refuses them
-        (ducosy_tpu/infer/engine.py:150-222); "auto" under "module" is
-        resolved per generator in ``build``."""
-        if forward == "auto":
-            forward = "module"
-        if forward not in ("module", "packed"):
-            raise ValueError(f"forward must be 'module', 'packed' or 'auto': "
-                             f"{forward!r}")
-        cbam = all(state_dict_has_cbam(sd) for sd in sds)
-        if forward == "module":
-            if trunk in ("xla", "pallas", "mono") or (
-                    trunk.startswith("chain") and trunk != "chain"):
-                raise ValueError(f"trunk={trunk!r} requires the packed "
-                                 f"forward (got forward={forward!r})")
-            return forward, trunk
-        if img_size % 4:
-            raise ValueError(f"forward='packed' needs img_size divisible by "
-                             f"4, got {img_size}")
-        if trunk == "auto" and self.device.type == "cuda":
-            blocks = min(state_dict_blocks(sd) for sd in sds)
-            trunk = "chain3" if blocks >= 3 else "mono"
-        elif trunk not in ("auto", "xla") and not cbam:
-            raise ValueError(f"trunk={trunk!r} needs CBAM checkpoints (the "
-                             "fused trunk kernels include the CBAM gates)")
-        return forward, trunk
 
     @classmethod
     def from_torch_checkpoints(cls, st_path: str, lung_path: str, **kw):

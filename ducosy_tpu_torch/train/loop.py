@@ -27,6 +27,14 @@ each generator forward runs on row bands over the row's devices
 (``train/step.py``); the trunk "auto" is then "plain", the one trunk the
 JAX package partitions.
 
+The step's generator forward, the summary's ``gen_forward``, is resolved
+as the JAX loop resolves it (``resolve.training_forward``;
+ducosy_tpu/train/loop.py:188-192): "auto" is the packed forward on a card
+when the image size divides by 4, else the module forward; a module trunk
+the caller named ("tail", "plain") or ``fused_norm`` keeps the module
+forward, under a (data, sp) mesh too. Validation runs the module forward
+with the state's trunk, as the JAX validation step runs the module.
+
 Each step is followed by a device synchronize, so the summary's
 ``step_seconds`` are the steps' wall times.
 """
@@ -51,6 +59,7 @@ from ducosy_tpu_torch.ops.hu import apply_windowing
 from ducosy_tpu_torch.parallel.mesh import all_reduce_sum, any_rank, \
     barrier, mesh_rows, process_row_slice, rank, replicate, shard_batch, \
     world_size
+from ducosy_tpu_torch.resolve import training_forward
 from ducosy_tpu_torch.train import checkpoint as ckpt
 from ducosy_tpu_torch.train.schedule import lr_for_epoch
 from ducosy_tpu_torch.train.state import NETS, create_state
@@ -113,6 +122,17 @@ def sp_row(device, trunk: str):
     return row[0], sp, "plain" if sp and trunk == "auto" else trunk
 
 
+def step_forward(cfg: TrainConfig, model_cfg: ModelConfig, trunk: str,
+                 device: torch.device) -> str:
+    """The train step's generator forward for ``cfg.gen_forward`` on
+    ``device`` with the module ``trunk`` the caller named, before "auto"
+    becomes "tail" or "plain" (``resolve.training_forward``)."""
+    return training_forward(cfg.gen_forward, trunk,
+                            fused_norm=model_cfg.fused_norm,
+                            img_size=cfg.img_size,
+                            on_card=device.type == "cuda")
+
+
 def train_cycle_gan(cfg: TrainConfig, target_range: str,
                     model_cfg: ModelConfig = ModelConfig(),
                     loss_cfg: LossConfig = LossConfig(), *,
@@ -135,7 +155,8 @@ def train_cycle_gan(cfg: TrainConfig, target_range: str,
             raise ValueError(f"a mesh of {len(rows)} data rows trains on as "
                              f"many ranks, not {world_size()}")
         device = rows[rank()]
-    dev, sp, trunk = sp_row(device, trunk)
+    dev, sp, row_trunk = sp_row(device, trunk)
+    gen_forward = step_forward(cfg, model_cfg, trunk, dev)
     cuda = dev.type == "cuda"
     world, primary = world_size(), rank() == 0
     shard = None
@@ -150,7 +171,8 @@ def train_cycle_gan(cfg: TrainConfig, target_range: str,
     os.makedirs(images_dir, exist_ok=True)
     os.makedirs(saved_models_dir, exist_ok=True)
 
-    state = create_state(cfg, range_cfg, model_cfg, device=dev, trunk=trunk)
+    state = create_state(cfg, range_cfg, model_cfg, device=dev,
+                         trunk=row_trunk)
     start_epoch = 0
     best = ckpt.BestTracker(saved_models_dir)
     resumed = False
@@ -188,8 +210,9 @@ def train_cycle_gan(cfg: TrainConfig, target_range: str,
     say(f"Train/Val split: {len(train_ds)} / {len(val_ds)} slices")
 
     remat_active = cfg.remat == "on"
+    say(f"generator forward: {gen_forward}")
     train_step = make_train_step(cfg, loss_cfg, remat=remat_active,
-                                 sp_devices=sp)
+                                 gen_forward=gen_forward, sp_devices=sp)
     # wrap-padded final batches carry a "weight" vector and need a step
     # built with the real-sample count (exact ragged semantics)
     final_steps: Dict[int, object] = {}
@@ -204,7 +227,7 @@ def train_cycle_gan(cfg: TrainConfig, target_range: str,
         if n_real not in final_steps:
             final_steps[n_real] = make_train_step(
                 cfg, loss_cfg, remat=remat_active, n_real=n_real,
-                sp_devices=sp)
+                gen_forward=gen_forward, sp_devices=sp)
         return final_steps[n_real]
 
     logger = MetricsLogger(os.path.join(training_dir, "metrics.jsonl")) \
@@ -257,6 +280,7 @@ def train_cycle_gan(cfg: TrainConfig, target_range: str,
                 torch.cuda.empty_cache()
                 remat_active = True
                 train_step = make_train_step(cfg, loss_cfg, remat=True,
+                                             gen_forward=gen_forward,
                                              sp_devices=sp)
                 final_steps.clear()
                 metrics = step_for(host_batch)(state, batch)
@@ -338,7 +362,8 @@ def train_cycle_gan(cfg: TrainConfig, target_range: str,
         logger.close()
     return {"val_loss": val_loss, "best_val_loss": best.best_val,
             "best_epoch": best.best_epoch, "epochs_run": epochs - start_epoch,
-            **last_metrics, "remat": "on" if remat_active else "off",
+            **last_metrics, "gen_forward": gen_forward,
+            "remat": "on" if remat_active else "off",
             "oom_fallback": oom_fallback,
             "step_seconds": step_seconds, "first_metrics": first_metrics,
             "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)
@@ -381,11 +406,12 @@ def run_steps(device, state_dicts, batches, cfg: TrainConfig,
                 "instance_norm_bwd": k2.instance_norm_bwd,
                 "block_tail": k4.block_tail,
                 "block_tail_bwd": k4.block_tail_bwd}
-    device, sp, trunk = sp_row(device, trunk)
+    device, sp, row_trunk = sp_row(device, trunk)
+    gen_forward = step_forward(cfg, model_cfg, trunk, device)
     state = create_state(cfg, range_cfg, model_cfg, device=device,
-                         trunk=trunk, state_dicts=state_dicts)
+                         trunk=row_trunk, state_dicts=state_dicts)
     step = make_train_step(cfg, loss_cfg, remat=remat, n_real=n_real,
-                           sp_devices=sp)
+                           gen_forward=gen_forward, sp_devices=sp)
     out: Dict[str, object] = {"metrics": [], "seconds": [], "launches": [],
                               "spread": []}
     primary = rank() == 0

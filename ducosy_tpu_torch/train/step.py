@@ -18,6 +18,10 @@ space-to-depth forward (``models.fused.generator_apply_packed``, as
 ducosy_tpu/train/step.py:94-104) with ``encoder_fused=False``: its "auto"
 trunk, "pallas" on a card (K2/K3 and K4/K5 through their autograd
 Functions) and "xla" on the CPU; a generator without CBAM runs "xla".
+"auto" is resolved as the JAX loop resolves it (``resolve.training_forward``;
+ducosy_tpu/train/loop.py:188-192): "packed" on a card when the image size
+divides by 4, else "module", the generators themselves; a module trunk
+the caller named ("tail", "plain") or ``fused_norm`` keeps "module".
 
 In a process group of more than one rank (``parallel/``), each rank runs
 the networks on its rows of the global batch, the generator loss and both
@@ -55,6 +59,7 @@ from ducosy_tpu_torch.models.banded import banded_apply
 from ducosy_tpu_torch.models.fused import generator_apply_packed
 from ducosy_tpu_torch.parallel.mesh import all_reduce_mean, gather_batch, \
     world_size
+from ducosy_tpu_torch.resolve import training_forward
 from ducosy_tpu_torch.train.state import CycleGANState
 
 Batch = Dict[str, torch.Tensor]   # "a", "b" NHW1, "masks" NHWM, "weight" (N,)
@@ -111,26 +116,25 @@ def make_train_step(cfg: TrainConfig, loss_cfg: LossConfig = LossConfig(), *,
     result is the reference's order). ``step.updating`` is True once the
     optimizers have started: an error raised before that left the state
     untouched. ``sp_devices``: the generators on row bands over these
-    devices (see above); one device or None is the whole image."""
+    devices (see above); one device or None is the whole image.
+
+    ``gen_forward`` None reads ``cfg.gen_forward``; "auto" is resolved at
+    each call from the batch's device, ``cfg.img_size`` and the generators'
+    ``fused_norm`` (the loop passes the forward it resolved from the trunk
+    its caller named). The forward of the last call is
+    ``step.gen_forward``."""
     world = world_size()
     gather = gather_batch if world > 1 else (lambda *xs: xs)
-    # None reads cfg.gen_forward, whose "auto" keeps the module forward
-    # (the JAX loop picks "packed" on a TPU, ducosy_tpu/train/loop.py:
-    # 188-195)
     gen_forward = gen_forward or cfg.gen_forward
-    if gen_forward == "auto":
-        gen_forward = "module"
-    if gen_forward not in ("module", "packed"):
-        raise ValueError(f"gen_forward must be 'auto', 'module' or "
-                         f"'packed': {gen_forward!r}")
+    training_forward(gen_forward)                 # refuse a bad name now
 
     sp = _sp_row(sp_devices)
 
-    def gen_apply(gen, x):
+    def gen_apply(gen, x, forward):
         if sp:
             fwd = functools.partial(banded_apply, gen, devices=sp,
-                                    forward=gen_forward)
-        elif gen_forward == "module":
+                                    forward=forward)
+        elif forward == "module":
             fwd = gen
         else:
             fwd = functools.partial(generator_apply_packed, gen,
@@ -160,10 +164,14 @@ def make_train_step(cfg: TrainConfig, loss_cfg: LossConfig = LossConfig(), *,
 
     def step(state: CycleGANState, batch: Batch) -> Dict[str, torch.Tensor]:
         step.updating = False
+        step.gen_forward = forward = training_forward(
+            gen_forward, fused_norm=state.g_a2b.fused_norm,
+            img_size=cfg.img_size,
+            on_card=batch["a"].device.type == "cuda")
         w = batch.get("weight")
         fake_a, fake_b, id_a, id_b, rec_a, rec_b = forward_all(
-            gen_apply, state.g_a2b, state.g_b2a, batch,
-            batched=batched_forwards)
+            functools.partial(gen_apply, forward=forward), state.g_a2b,
+            state.g_b2a, batch, batched=batched_forwards)
         args = gather(batch["a"], batch["b"], fake_a, fake_b, rec_a, rec_b,
                       id_a, id_b, state.d_a(fake_a), state.d_b(fake_b), w)
         terms = checkpoint(loss_terms, *args, use_reentrant=False) \
@@ -197,6 +205,7 @@ def make_train_step(cfg: TrainConfig, loss_cfg: LossConfig = LossConfig(), *,
         }
 
     step.updating = False
+    step.gen_forward = None
     return step
 
 

@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from ducosy_tpu.config import ModelConfig, SOFT_TISSUE, TrainConfig, replace
+from ducosy_tpu.config import SOFT_TISSUE, replace
 from ducosy_tpu.infer.engine import DualGeneratorEngine as JaxEngine
 from ducosy_tpu.losses.suite import generator_loss as jax_g_loss
 from ducosy_tpu.models.generator import Generator as JaxGenerator
@@ -43,6 +43,7 @@ from ducosy_tpu_torch.train.state import create_state
 from ducosy_tpu_torch.train.step import make_train_step
 
 sys.path.insert(0, os.path.dirname(__file__))
+import jax_shared  # noqa: E402
 from synth import chest_hu  # noqa: E402
 
 BASE, SIZE = 8, 32
@@ -110,20 +111,12 @@ def test_packed_engine_on_a_data_mesh_matches_one_device():
 
 
 # ------------------------------------------------------------- training
-IMG, BATCH = 32, 2
-CFG = replace(TrainConfig(), img_size=IMG, batch_size=BATCH,
-              compute_dtype="float32")
-MODEL = ModelConfig(num_residual_blocks=2, base_channels=8,
-                    disc_base_channels=8)
+IMG, BATCH = jax_shared.IMG, jax_shared.BATCH
+CFG, MODEL = jax_shared.CFG, jax_shared.MODEL
 NOISE_BOUND = 1e-5   # |grad| of a bias that feeds an InstanceNorm
 
 
-def _batch(seed):
-    rng = np.random.default_rng(seed)
-    return {"a": rng.uniform(-1, 1, (BATCH, IMG, IMG, 1)).astype(np.float32),
-            "b": rng.uniform(-1, 1, (BATCH, IMG, IMG, 1)).astype(np.float32),
-            "masks": rng.integers(0, 2, (BATCH, IMG, IMG, 2)).astype(
-                np.float32)}
+_batch = jax_shared.batch
 
 
 def jax_step_run(range_cfg, model_cfg):
@@ -182,8 +175,11 @@ def check_generator_grads(state, jax_run, blocks):
 
 
 @pytest.fixture(scope="module")
-def packed_runs():
-    jax_run = jax_step_run(SOFT_TISSUE, MODEL)
+def packed_runs(tmp_path_factory):
+    """JAX's module step at this file's CFG and MODEL, computed once a test
+    run (tests/jax_shared.py; jax_step_run's quantities and more), and the
+    port's packed step from its init."""
+    jax_run = jax_shared.module_step(tmp_path_factory)
     return jax_run, port_step_run(jax_run, SOFT_TISSUE, MODEL,
                                   gen_forward="packed")
 

@@ -21,23 +21,15 @@ import numpy as np
 import pytest
 import torch
 
-from ducosy_tpu.config import ModelConfig, SOFT_TISSUE, TrainConfig, replace
+from ducosy_tpu.config import SOFT_TISSUE, replace
 from ducosy_tpu.data.dataset import SlicePairDataset as JaxSlicePairDataset
-from ducosy_tpu.losses.suite import discriminator_loss as jax_d_loss
-from ducosy_tpu.losses.suite import generator_loss as jax_g_loss
 from ducosy_tpu.models.generator import Generator as JaxGenerator
 from ducosy_tpu.train import create_state as jax_create_state
-from ducosy_tpu.train import make_train_step as jax_make_train_step
 from ducosy_tpu.train import make_val_step as jax_make_val_step
 from ducosy_tpu.train.schedule import lr_for_epoch as jax_lr_for_epoch
-from ducosy_tpu.train.step import _forward_all as jax_forward_all
 from ducosy_tpu_torch.cli import train as tcli
 from ducosy_tpu_torch.data.dataset import SlicePairDataset
-from ducosy_tpu_torch.models.convert import (
-    cyclegan_state_dicts_from_jax,
-    discriminator_state_dict_from_jax,
-    generator_state_dict_from_jax,
-)
+from ducosy_tpu_torch.models.convert import generator_state_dict_from_jax
 from ducosy_tpu_torch.models.generator import Generator
 from ducosy_tpu_torch.train import checkpoint as ckpt
 from ducosy_tpu_torch.train import loop as tloop
@@ -46,21 +38,15 @@ from ducosy_tpu_torch.train.state import NETS, create_state
 from ducosy_tpu_torch.train.step import make_train_step, val_step
 
 sys.path.insert(0, os.path.dirname(__file__))
+import jax_shared  # noqa: E402
 from synth import write_dataset, write_patient  # noqa: E402
 
-IMG, BATCH = 32, 2
-CFG = replace(TrainConfig(), img_size=IMG, batch_size=BATCH,
-              compute_dtype="float32")
-MODEL = ModelConfig(num_residual_blocks=2, base_channels=8,
-                    disc_base_channels=8)
+IMG, BATCH = jax_shared.IMG, jax_shared.BATCH
+CFG, MODEL = jax_shared.CFG, jax_shared.MODEL
 NOISE_BOUND = 1e-5   # |grad| of a bias that feeds an InstanceNorm
 
 
-def _batch(seed, n=BATCH):
-    rng = np.random.default_rng(seed)
-    return {"a": rng.uniform(-1, 1, (n, IMG, IMG, 1)).astype(np.float32),
-            "b": rng.uniform(-1, 1, (n, IMG, IMG, 1)).astype(np.float32),
-            "masks": rng.integers(0, 2, (n, IMG, IMG, 2)).astype(np.float32)}
+_batch = jax_shared.batch
 
 
 def _torch_batch(batch):
@@ -83,44 +69,14 @@ def _feeds_instance_norm(net, name):
 
 
 @pytest.fixture(scope="module")
-def jax_run():
+def jax_run(tmp_path_factory):
     """One JAX train step, its gradients, and the port's state dicts of the
-    same init."""
+    same init (computed once a test run: tests/jax_shared.py), with the
+    JAX init state and networks for the validation step."""
     state, gen, disc = jax_create_state(jax.random.PRNGKey(0), CFG,
                                         SOFT_TISSUE, MODEL, img_size=IMG)
-    batch = _batch(0)
-    jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    step = jax_make_train_step(gen, disc, CFG, donate=False, remat=False,
-                               gen_forward="module")
-    new_state, metrics = step(state, jb)
-
-    def g_loss(g_params):
-        fwd = jax_forward_all(lambda p, x: gen.apply({"params": p}, x),
-                              g_params["a2b"], g_params["b2a"], jb)
-        fake_a, fake_b, id_a, id_b, rec_a, rec_b = fwd
-        terms = jax_g_loss(
-            real_a=jb["a"], real_b=jb["b"], fake_a=fake_a, fake_b=fake_b,
-            rec_a=rec_a, rec_b=rec_b, id_a=id_a, id_b=id_b,
-            d_a_fake_logits=disc.apply({"params": state.params_d_a}, fake_a),
-            d_b_fake_logits=disc.apply({"params": state.params_d_b}, fake_b),
-            cfg=CFG)
-        return terms.total, (fake_a, fake_b)
-
-    (_, (fake_a, fake_b)), g_grads = jax.jit(jax.value_and_grad(
-        g_loss, has_aux=True))({"a2b": state.params_g_a2b,
-                                "b2a": state.params_g_b2a})
-    d_grad = jax.jit(jax.grad(lambda p, real, fake: jax_d_loss(
-        disc.apply({"params": p}, real), disc.apply({"params": p}, fake))))
-    grads = {"g_a2b": generator_state_dict_from_jax(_np_tree(g_grads["a2b"])),
-             "g_b2a": generator_state_dict_from_jax(_np_tree(g_grads["b2a"])),
-             "d_a": discriminator_state_dict_from_jax(_np_tree(
-                 d_grad(state.params_d_a, jb["a"], fake_a))),
-             "d_b": discriminator_state_dict_from_jax(_np_tree(
-                 d_grad(state.params_d_b, jb["b"], fake_b)))}
-    return dict(init=cyclegan_state_dicts_from_jax(_np_tree(state)),
-                new=cyclegan_state_dicts_from_jax(_np_tree(new_state)),
-                metrics={k: float(v) for k, v in metrics.items()},
-                grads=grads, batch=batch, jax_state=state, gen=gen, disc=disc)
+    return dict(jax_shared.module_step(tmp_path_factory), jax_state=state,
+                gen=gen, disc=disc)
 
 
 @pytest.fixture(scope="module")
@@ -364,10 +320,11 @@ def test_remat_auto_falls_back_on_oom(tmp_path, monkeypatch, capsys):
     real = tloop.make_train_step
     built = []
 
-    def flaky(cfg, loss_cfg, *, remat, n_real=None, sp_devices=None):
+    def flaky(cfg, loss_cfg, *, remat, n_real=None, gen_forward=None,
+              sp_devices=None):
         built.append(remat)
         step = real(cfg, loss_cfg, remat=remat, n_real=n_real,
-                    sp_devices=sp_devices)
+                    gen_forward=gen_forward, sp_devices=sp_devices)
         if remat:
             return step
 

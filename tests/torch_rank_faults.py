@@ -15,9 +15,10 @@ def train_oom_once(device, args):
     process)."""
     real = tloop.make_train_step
 
-    def flaky(cfg, loss_cfg, *, remat, n_real=None, sp_devices=None):
+    def flaky(cfg, loss_cfg, *, remat, n_real=None, gen_forward=None,
+              sp_devices=None):
         step = real(cfg, loss_cfg, remat=remat, n_real=n_real,
-                    sp_devices=sp_devices)
+                    gen_forward=gen_forward, sp_devices=sp_devices)
         if remat:
             return step
 
