@@ -63,6 +63,15 @@ port's own trunk names "tail" and "plain", takes "chain" (K1), "mega" (K7
 "chain", or "plain" for a checkpoint without CBAM or with ``fused_norm``
 (the 18 trunk norms on K2), which only the module forward reads.
 
+``run_patient_async`` is traced (``trace.py``): the span ``engine.patient``
+(request: the engine's count of patients, ``patients``) holds
+``engine.pad``, ``engine.masks`` (mask-conditioned engines; the masks
+computed in ``engine.host_masks``, which a ``prefetch_masks`` thread opens
+as a root of its own), ``engine.upload``, one ``engine.chunk`` a chunk and
+``engine.postprocess``; the counters ``engine.slices``,
+``engine.padded_slices``, ``engine.chunks`` and ``engine.h2d_bytes`` (the
+volume's and the masks' bytes handed to the device) count every call.
+
 bf16 is the serving default; fp32 is the parity mode and switches cuDNN
 and matmul TF32 off (process-wide) so fp32 means fp32.
 
@@ -84,6 +93,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ducosy_tpu_torch import trace
 from ducosy_tpu_torch.config import LUNG, SOFT_TISSUE, InferConfig, \
     RangeConfig
 from ducosy_tpu_torch.data.dataset import resize_nearest
@@ -205,6 +215,7 @@ class DualGeneratorEngine:
         self.replicas = [(build(st_sd, r), build(lung_sd, r))
                          for r in self.rows]
         self.st_generator, self.lung_generator = self.replicas[0]
+        self.patients = 0     # run_patient_async calls, the spans' request
 
     @classmethod
     def from_torch_checkpoints(cls, st_path: str, lung_path: str, **kw):
@@ -278,27 +289,28 @@ class DualGeneratorEngine:
         per mask-conditioned model ("st", "lung") a float32 (Z, s, s, M)
         array of {0, 1} at model resolution (nearest resize), channels in
         the range's ``mask_types`` order."""
-        hu_vol = np.asarray(stored, np.float32) * slope + intercept
-        ranges = {k: r for k, ch, r in (
-            ("st", self.st_channels, self.st_range),
-            ("lung", self.lung_channels, self.lung_range)) if ch > 1}
-        needed = sorted({t for r in ranges.values() for t in r.mask_types})
-        masks = self._masks_threaded(hu_vol, needed) if needed else {}
+        with trace.span("engine.host_masks"):
+            hu_vol = np.asarray(stored, np.float32) * slope + intercept
+            ranges = {k: r for k, ch, r in (
+                ("st", self.st_channels, self.st_range),
+                ("lung", self.lung_channels, self.lung_range)) if ch > 1}
+            needed = sorted({t for r in ranges.values() for t in r.mask_types})
+            masks = self._masks_threaded(hu_vol, needed) if needed else {}
 
-        def pack(mask_types):
-            chans = []
-            for name in mask_types:
-                m = masks.get(name)
-                if m is None:
-                    m = np.zeros(hu_vol.shape, np.uint8)
-                if m.ndim == 2:
-                    m = m[None]
-                chans.append(np.stack([
-                    resize_nearest(s.astype(np.float32), self.img_size)
-                    for s in m]))
-            return np.stack(chans, axis=-1).astype(np.float32)
+            def pack(mask_types):
+                chans = []
+                for name in mask_types:
+                    m = masks.get(name)
+                    if m is None:
+                        m = np.zeros(hu_vol.shape, np.uint8)
+                    if m.ndim == 2:
+                        m = m[None]
+                    chans.append(np.stack([
+                        resize_nearest(s.astype(np.float32), self.img_size)
+                        for s in m]))
+                return np.stack(chans, axis=-1).astype(np.float32)
 
-        return {k: pack(r.mask_types) for k, r in ranges.items()}
+            return {k: pack(r.mask_types) for k, r in ranges.items()}
 
     def prefetch_masks(self, stored_volume: np.ndarray, slope: float,
                        intercept: float):
@@ -327,8 +339,10 @@ class DualGeneratorEngine:
         if pad:
             masks = {k: np.concatenate([v, v[-1:].repeat(pad, axis=0)])
                      for k, v in masks.items()}
-        return {k: torch.from_numpy(np.asarray(v).astype(np.int8))
-                .to(self.device) for k, v in masks.items()}
+        masks = {k: np.asarray(v).astype(np.int8) for k, v in masks.items()}
+        trace.count("engine.h2d_bytes", sum(v.nbytes for v in masks.values()))
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in masks.items()}
 
     def _upload(self, stored: np.ndarray) -> torch.Tensor:
         """Host stored pixels -> device tensor in a narrow integer dtype
@@ -336,6 +350,7 @@ class DualGeneratorEngine:
         arr = np.ascontiguousarray(stored)
         if arr.dtype == np.uint16:
             arr = arr.astype(np.int32)
+        trace.count("engine.h2d_bytes", arr.nbytes)
         return torch.from_numpy(arr).to(self.device)
 
     def generate_batch(self, stored: np.ndarray, slope: float,
@@ -402,23 +417,46 @@ class DualGeneratorEngine:
             raise ValueError(f"image height {h} not divisible by sp-axis "
                              f"size {self.sp}")
         pad = (-z) % chunk
-        stored = np.concatenate(
-            [stored_volume, stored_volume[-1:].repeat(pad, axis=0)]
-        ) if pad else stored_volume
-        slope, intercept = float(slope), float(intercept)
+        self.patients += 1
+        trace.count("engine.slices", z)
+        trace.count("engine.padded_slices", pad)
+        trace.count("engine.chunks", (z + pad) // chunk)
+        post = InferConfig(pre_z_sigma=pre_z_sigma, sigma_z=sigma_z,
+                           sigma_xy=sigma_xy, sharpen_amount=sharpen_amount,
+                           sharpen_radius=sharpen_radius)
+        # the span closes after _patient's frame, so freeing the padded
+        # host copy and the chunks' tensors counts as the patient's
+        with trace.span("engine.patient", self.patients):
+            return self._patient(stored_volume, float(slope),
+                                 float(intercept), chunk, pad, post, masks)
+
+    def _patient(self, stored_volume, slope, intercept, chunk, pad, post,
+                 masks) -> torch.Tensor:
+        """``run_patient_async`` after its checks, phase by phase."""
+        z, h, w = stored_volume.shape
         with torch.inference_mode():
-            masks = self._upload_masks(masks, stored_volume, slope, intercept,
-                                       pad)
-            vol = self._upload(stored)
+            with trace.span("engine.pad"):
+                stored = np.concatenate(
+                    [stored_volume, stored_volume[-1:].repeat(pad, axis=0)]
+                ) if pad else stored_volume
+            if self.use_masks:
+                with trace.span("engine.masks"):
+                    masks = self._upload_masks(masks, stored_volume, slope,
+                                               intercept, pad)
+            else:
+                masks = None
+            with trace.span("engine.upload"):
+                vol = self._upload(stored)
             merged = torch.empty((z + pad, h, w), dtype=torch.float32,
                                  device=self.device)
             for lo in range(0, z + pad, chunk):
-                sl = vol[lo:lo + chunk].to(torch.float32)
-                mk = masks and {k: v[lo:lo + chunk] for k, v in masks.items()}
-                out = self._forward_parts(sl, slope, intercept, h, w, mk)
-                merged[lo:lo + chunk] = composite_volume(
-                    sl, out["raw_hu"], out["st_stored"], out["lung_stored"],
-                    self.st_range, self.lung_range)
-            return synthesize_volume(merged[:z], InferConfig(
-                pre_z_sigma=pre_z_sigma, sigma_z=sigma_z, sigma_xy=sigma_xy,
-                sharpen_amount=sharpen_amount, sharpen_radius=sharpen_radius))
+                with trace.span("engine.chunk"):
+                    sl = vol[lo:lo + chunk].to(torch.float32)
+                    mk = masks and {k: v[lo:lo + chunk]
+                                    for k, v in masks.items()}
+                    out = self._forward_parts(sl, slope, intercept, h, w, mk)
+                    merged[lo:lo + chunk] = composite_volume(
+                        sl, out["raw_hu"], out["st_stored"],
+                        out["lung_stored"], self.st_range, self.lung_range)
+            with trace.span("engine.postprocess"):
+                return synthesize_volume(merged[:z], post)

@@ -25,7 +25,8 @@ convs that consume them are plain convs outside any Pallas kernel in JAX,
 so they are ``F.conv2d`` here (``layers.conv2d``, NHWC as channels_last).
 ``PackedWeights`` lays the transformed weights out once (serving);
 training calls ``generator_apply_packed`` on the module, which transforms
-them in each forward, differentiably.
+them in each forward, differentiably (the span and counter
+``fused.pack_weights``, ``trace.py``).
 
 Trunks of the packed forward (true layout, 128^2 x 4 base at 512^2):
   "xla"       plain convs with biases, plain norms, the plain CBAM tail or
@@ -71,6 +72,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ducosy_tpu_torch import trace
 from ducosy_tpu_torch.models.convert import state_dict_blocks, \
     state_dict_has_cbam
 from ducosy_tpu_torch.models.layers import (
@@ -581,8 +583,12 @@ def generator_apply_packed(params, x: torch.Tensor, *,
         dtype = getattr(params, "dtype", None) if isinstance(
             params, PackedWeights) else getattr(params, "compute_dtype", None)
         dtype = dtype or torch.float32
-    pw = params if isinstance(params, PackedWeights) else \
-        packed_weights(params, dtype=dtype, quant=quant)
+    if isinstance(params, PackedWeights):
+        pw = params
+    else:
+        trace.count("fused.pack_weights")
+        with trace.span("fused.pack_weights"):
+            pw = packed_weights(params, dtype=dtype, quant=quant)
     if pw.quant != quant and quant is not None:
         raise ValueError(f"weights laid out for quant={pw.quant!r}, called "
                          f"with quant={quant!r}")

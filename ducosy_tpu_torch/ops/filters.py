@@ -14,6 +14,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ducosy_tpu_torch import trace
+
 
 def _gaussian_kernel_1d(sigma: float, truncate: float = 4.0) -> np.ndarray:
     """scipy-compatible normalized kernel of radius int(truncate*sigma+0.5);
@@ -46,7 +48,10 @@ def _gaussian_matrix(n: int, sigma: float, truncate: float = 4.0) -> np.ndarray:
 
 
 def _apply_axis_matrix(vol: torch.Tensor, m: np.ndarray, axis: int):
-    """out[... i ...] = sum_j m[i, j] vol[... j ...], in fp32."""
+    """out[... i ...] = sum_j m[i, j] vol[... j ...], in fp32. The host
+    matrix goes to the volume's device on every call (counted in
+    ``filters.h2d_bytes``)."""
+    trace.count("filters.h2d_bytes", m.nbytes)
     mt = torch.from_numpy(m).to(vol.device)
     out = torch.tensordot(mt, vol.to(torch.float32).movedim(axis, 0),
                           dims=([1], [0]))

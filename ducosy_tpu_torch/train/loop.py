@@ -36,7 +36,9 @@ forward, under a (data, sp) mesh too. Validation runs the module forward
 with the state's trunk, as the JAX validation step runs the module.
 
 Each step is followed by a device synchronize, so the summary's
-``step_seconds`` are the steps' wall times.
+``step_seconds`` are the steps' wall times. In the ``profile_dir`` window
+the loop's own phases are spans (``trace.py``): ``loop.load`` (the next
+host batch), ``loop.upload`` and ``loop.sync``, beside the step's.
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ducosy_tpu_torch import trace
 from ducosy_tpu_torch.config import LossConfig, ModelConfig, RANGES, \
     RangeConfig, TrainConfig
 from ducosy_tpu_torch.data.loader import HostLoader
@@ -100,6 +103,17 @@ def _restore(path: str, state) -> bool:
 
 def _to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def _loaded(loader):
+    """``loader``'s batches, each fetch in the span ``loop.load``."""
+    it = iter(loader)
+    while True:
+        with trace.span("loop.load"):
+            batch = next(it, None)
+        if batch is None:
+            return
+        yield batch
 
 
 def _export_trace(profiler, profile_dir: str) -> None:
@@ -249,7 +263,7 @@ def train_cycle_gan(cfg: TrainConfig, target_range: str,
         state.set_learning_rate(lr)
         timer = StepTimer()
 
-        for step_idx, host_batch in enumerate(loader):
+        for step_idx, host_batch in enumerate(_loaded(loader)):
             if max_steps_per_epoch and step_idx >= max_steps_per_epoch:
                 break
             if cfg.profile_dir and epoch == start_epoch and primary:
@@ -259,7 +273,8 @@ def train_cycle_gan(cfg: TrainConfig, target_range: str,
                 elif step_idx == cfg.profile_stop and profiler is not None:
                     profiler = _export_trace(profiler, cfg.profile_dir)
             t0 = time.perf_counter()
-            batch = _to_device(host_batch, dev)
+            with trace.span("loop.upload"):
+                batch = _to_device(host_batch, dev)
             step_fn = step_for(host_batch)
             retry = cfg.remat == "auto" and not remat_active
             try:
@@ -285,7 +300,8 @@ def train_cycle_gan(cfg: TrainConfig, target_range: str,
                 final_steps.clear()
                 metrics = step_for(host_batch)(state, batch)
             if cuda:
-                torch.cuda.synchronize(dev)
+                with trace.span("loop.sync"):
+                    torch.cuda.synchronize(dev)
             step_seconds.append(time.perf_counter() - t0)
             timer.tick()
             if step_idx % cfg.log_every == 0:

@@ -23,6 +23,16 @@ ducosy_tpu/train/loop.py:188-192): "packed" on a card when the image size
 divides by 4, else "module", the generators themselves; a module trunk
 the caller named ("tail", "plain") or ``fused_norm`` keeps "module".
 
+The step is traced (``trace.py``): the span ``step`` (request: the
+process's count of steps, the counter ``step.calls``) holds six
+``step.gen_forward`` (each packed one holds ``fused.pack_weights``, the
+module's weights laid out again), ``step.gen_loss`` (the discriminators'
+logits on the fakes and the nine-term suite), ``step.gen_backward``, two
+``step.disc`` (each discriminator's loss and gradient) and
+``step.optimizer`` (the all-reduce, the gradients' assignment and the three
+Adam steps). Under remat the backward runs the forwards again, with their
+spans, in the autograd engine's thread on a card.
+
 In a process group of more than one rank (``parallel/``), each rank runs
 the networks on its rows of the global batch, the generator loss and both
 discriminator losses take their inputs of the whole batch
@@ -49,6 +59,7 @@ from typing import Dict, Sequence
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ducosy_tpu_torch import trace
 from ducosy_tpu_torch.config import LossConfig, TrainConfig
 from ducosy_tpu_torch.losses.suite import (
     discriminator_loss,
@@ -139,12 +150,13 @@ def make_train_step(cfg: TrainConfig, loss_cfg: LossConfig = LossConfig(), *,
         else:
             fwd = functools.partial(generator_apply_packed, gen,
                                     encoder_fused=False)
-        if not remat:
-            return fwd(x)
-        # the saved input is the forward's only residual: keep it in the
-        # compute dtype, which the generator casts to first anyway
-        dt = gen.compute_dtype or x.dtype
-        return checkpoint(fwd, x.to(dt), use_reentrant=False)
+        with trace.span("step.gen_forward"):
+            if not remat:
+                return fwd(x)
+            # the saved input is the forward's only residual: keep it in
+            # the compute dtype, which the generator casts to first anyway
+            dt = gen.compute_dtype or x.dtype
+            return checkpoint(fwd, x.to(dt), use_reentrant=False)
 
     def loss_terms(*args):
         real_a, real_b, fake_a, fake_b, rec_a, rec_b, id_a, id_b, la, lb, w \
@@ -163,6 +175,10 @@ def make_train_step(cfg: TrainConfig, loss_cfg: LossConfig = LossConfig(), *,
         return discriminator_loss(*gather(disc(real), disc(fake), w))
 
     def step(state: CycleGANState, batch: Batch) -> Dict[str, torch.Tensor]:
+        with trace.span("step", trace.count("step.calls")):
+            return run(state, batch)
+
+    def run(state: CycleGANState, batch: Batch) -> Dict[str, torch.Tensor]:
         step.updating = False
         step.gen_forward = forward = training_forward(
             gen_forward, fused_norm=state.g_a2b.fused_norm,
@@ -172,27 +188,35 @@ def make_train_step(cfg: TrainConfig, loss_cfg: LossConfig = LossConfig(), *,
         fake_a, fake_b, id_a, id_b, rec_a, rec_b = forward_all(
             functools.partial(gen_apply, forward=forward), state.g_a2b,
             state.g_b2a, batch, batched=batched_forwards)
-        args = gather(batch["a"], batch["b"], fake_a, fake_b, rec_a, rec_b,
-                      id_a, id_b, state.d_a(fake_a), state.d_b(fake_b), w)
-        terms = checkpoint(loss_terms, *args, use_reentrant=False) \
-            if remat else loss_terms(*args)
+        with trace.span("step.gen_loss"):
+            args = gather(batch["a"], batch["b"], fake_a, fake_b, rec_a,
+                          rec_b, id_a, id_b, state.d_a(fake_a),
+                          state.d_b(fake_b), w)
+            terms = checkpoint(loss_terms, *args, use_reentrant=False) \
+                if remat else loss_terms(*args)
         opts = (state.opt_g, state.opt_d_a, state.opt_d_b)
-        grads = [torch.autograd.grad(terms.total, _params(state.opt_g))]
+        with trace.span("step.gen_backward"):
+            grads = [torch.autograd.grad(terms.total, _params(state.opt_g))]
         del args, id_a, id_b, rec_a, rec_b
 
         fake_a, fake_b = fake_a.detach(), fake_b.detach()
-        d_a_loss = d_loss(state.d_a, batch["a"], fake_a, w)
-        grads.append(torch.autograd.grad(d_a_loss, _params(state.opt_d_a)))
-        d_b_loss = d_loss(state.d_b, batch["b"], fake_b, w)
-        grads.append(torch.autograd.grad(d_b_loss, _params(state.opt_d_b)))
+        with trace.span("step.disc"):
+            d_a_loss = d_loss(state.d_a, batch["a"], fake_a, w)
+            grads.append(torch.autograd.grad(d_a_loss,
+                                             _params(state.opt_d_a)))
+        with trace.span("step.disc"):
+            d_b_loss = d_loss(state.d_b, batch["b"], fake_b, w)
+            grads.append(torch.autograd.grad(d_b_loss,
+                                             _params(state.opt_d_b)))
 
-        if world > 1:
-            grads = [all_reduce_mean(gs) for gs in grads]
-        step.updating = True
-        for opt, gs in zip(opts, grads):
-            for p, g in zip(_params(opt), gs):
-                p.grad = g
-            opt.step()
+        with trace.span("step.optimizer"):
+            if world > 1:
+                grads = [all_reduce_mean(gs) for gs in grads]
+            step.updating = True
+            for opt, gs in zip(opts, grads):
+                for p, g in zip(_params(opt), gs):
+                    p.grad = g
+                opt.step()
         return {
             "loss_G": terms.total.detach(),
             "loss_D": (d_a_loss + d_b_loss).detach(),
