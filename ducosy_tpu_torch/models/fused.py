@@ -23,10 +23,12 @@ does, and return HWIO; each output entry is its taps summed in the JAX
 loop's order (``_assemble``), so the transforms are exact in fp32. The
 convs that consume them are plain convs outside any Pallas kernel in JAX,
 so they are ``F.conv2d`` here (``layers.conv2d``, NHWC as channels_last).
-``PackedWeights`` lays the transformed weights out once (serving);
-training calls ``generator_apply_packed`` on the module, which transforms
-them in each forward, differentiably (the span and counter
-``fused.pack_weights``, ``trace.py``).
+``PackedWeights`` lays the transformed weights out once: at load for
+serving, once a generator a step for training (differentiably, in fp32,
+each forward casting, ``cast_packed``); a module passed to
+``generator_apply_packed`` is laid out in that call. Each layout is the
+span and counter ``fused.pack_weights`` (``trace.py``); the transforms'
+index tables are uploaded once a device (``fused.table_uploads``).
 
 Trunks of the packed forward (true layout, 128^2 x 4 base at 512^2):
   "xla"       plain convs with biases, plain norms, the plain CBAM tail or
@@ -129,6 +131,23 @@ def _table(entries, n_blocks: int) -> np.ndarray:
     return np.array([t + [-1] * (width - len(t)) for t in terms], np.int64)
 
 
+_indices: dict = {}   # (id(table), fill, device) -> (table, its index)
+
+
+def _index(table: np.ndarray, fill: int, device) -> torch.Tensor:
+    """A (cached) table as an index tensor on ``device``, its -1 entries
+    ``fill``: built and uploaded once a table and device (the counter
+    ``fused.table_uploads``), so a layout copies nothing from the host and
+    never waits on the stream (as ``ops/filters.py``'s ``_operator``)."""
+    key = (id(table), fill, device)
+    hit = _indices.get(key)
+    if hit is None:
+        trace.count("fused.table_uploads")
+        idx = torch.from_numpy(np.where(table < 0, fill, table)).to(device)
+        hit = _indices[key] = (table, idx)   # the table keeps its id alive
+    return hit[1]
+
+
 def _assemble(taps: torch.Tensor, table: np.ndarray, kd: int, a: int,
               b: int) -> torch.Tensor:
     """The (kd, kd, a*Cin, b*Cout) HWIO kernel whose (d, e, i, j) block is
@@ -137,7 +156,7 @@ def _assemble(taps: torch.Tensor, table: np.ndarray, kd: int, a: int,
     accumulates (0 + t0 = t0 exactly). Differentiable."""
     t, cin, cout = taps.shape
     ext = torch.cat([taps, taps.new_zeros((1, cin, cout))])
-    idx = torch.from_numpy(np.where(table < 0, t, table)).to(taps.device)
+    idx = _index(table, t, taps.device)
     acc = ext[idx[:, 0]]
     for j in range(1, table.shape[1]):
         acc = acc + ext[idx[:, j]]
@@ -456,6 +475,25 @@ def packed_weights(params, *, dtype, quant: str | None = None,
                          dtype, quant, convs, biases, trunk, int8)
 
 
+def lay_out(params, *, dtype, quant: str | None = None) -> PackedWeights:
+    """``packed_weights`` of a module or state dict inside the span and
+    counter ``fused.pack_weights``: once a forward when a module is passed
+    to ``generator_apply_packed``, once a generator a training step."""
+    trace.count("fused.pack_weights")
+    with trace.span("fused.pack_weights"):
+        return packed_weights(params, dtype=dtype, quant=quant)
+
+
+def cast_packed(pw: PackedWeights, dtype) -> PackedWeights:
+    """``pw`` with its convs in ``dtype``, differentiably. The training step
+    lays its generators out in fp32 and each forward casts: the forwards'
+    weight gradients then meet, and sum, in fp32 at the shared layout."""
+    if pw.dtype == dtype:
+        return pw
+    return pw._replace(dtype=dtype, convs={k: v.to(dtype)
+                                           for k, v in pw.convs.items()})
+
+
 # ------------------------------------------------------------------ trunks
 def trunk_plain(h, blocks, *, fused_norm: bool = False, int8=None):
     """The reference blocks on the unpadded carry h, each conv with its
@@ -575,20 +613,16 @@ def generator_apply_packed(params, x: torch.Tensor, *,
     differentiably), its state dict, or ``PackedWeights`` (laid out once);
     depth and CBAM come from it, and ``num_residual_blocks`` / ``use_cbam``,
     the JAX signature's, must agree when given. ``dtype`` defaults to a
-    module's compute dtype (else fp32); the convs compute in it."""
+    module's compute dtype (else fp32) or the layout's own; the convs
+    compute in it (a layout in another dtype is cast, ``cast_packed``)."""
     if quant is None and trunk_int8:
         quant = "trunk"
     check_quant(quant)
-    if dtype is None:
-        dtype = getattr(params, "dtype", None) if isinstance(
-            params, PackedWeights) else getattr(params, "compute_dtype", None)
-        dtype = dtype or torch.float32
     if isinstance(params, PackedWeights):
-        pw = params
+        pw = cast_packed(params, dtype or params.dtype)
     else:
-        trace.count("fused.pack_weights")
-        with trace.span("fused.pack_weights"):
-            pw = packed_weights(params, dtype=dtype, quant=quant)
+        pw = lay_out(params, quant=quant, dtype=dtype or getattr(
+            params, "compute_dtype", None) or torch.float32)
     if pw.quant != quant and quant is not None:
         raise ValueError(f"weights laid out for quant={pw.quant!r}, called "
                          f"with quant={quant!r}")

@@ -22,16 +22,22 @@ Functions) and "xla" on the CPU; a generator without CBAM runs "xla".
 ducosy_tpu/train/loop.py:188-192): "packed" on a card when the image size
 divides by 4, else "module", the generators themselves; a module trunk
 the caller named ("tail", "plain") or ``fused_norm`` keeps "module".
+Each generator's weights are laid out once a step, differentiably and in
+fp32, and its three forwards share that layout, each casting it to the
+compute dtype: the weight gradients sum in fp32 at the layout, and the
+backward runs through the layout once (the same math as a layout a
+forward). Under remat only the forwards are checkpointed, not the layout.
 
 The step is traced (``trace.py``): the span ``step`` (request: the
-process's count of steps, the counter ``step.calls``) holds six
-``step.gen_forward`` (each packed one holds ``fused.pack_weights``, the
-module's weights laid out again), ``step.gen_loss`` (the discriminators'
-logits on the fakes and the nine-term suite), ``step.gen_backward``, two
-``step.disc`` (each discriminator's loss and gradient) and
-``step.optimizer`` (the all-reduce, the gradients' assignment and the three
-Adam steps). Under remat the backward runs the forwards again, with their
-spans, in the autograd engine's thread on a card.
+process's count of steps, the counter ``step.calls``) holds, on the
+packed forward, ``step.layout`` (two ``fused.pack_weights``, one a
+generator), then six ``step.gen_forward``, ``step.gen_loss`` (the
+discriminators' logits on the fakes and the nine-term suite),
+``step.gen_backward``, two ``step.disc`` (each discriminator's loss and
+gradient) and ``step.optimizer`` (the all-reduce, the gradients'
+assignment and the three Adam steps). Under remat the backward runs the
+forwards again, with their spans, in the autograd engine's thread on a
+card.
 
 In a process group of more than one rank (``parallel/``), each rank runs
 the networks on its rows of the global batch, the generator loss and both
@@ -67,7 +73,7 @@ from ducosy_tpu_torch.losses.suite import (
     validation_generator_loss,
 )
 from ducosy_tpu_torch.models.banded import banded_apply
-from ducosy_tpu_torch.models.fused import generator_apply_packed
+from ducosy_tpu_torch.models.fused import generator_apply_packed, lay_out
 from ducosy_tpu_torch.parallel.mesh import all_reduce_mean, gather_batch, \
     world_size
 from ducosy_tpu_torch.resolve import training_forward
@@ -141,14 +147,15 @@ def make_train_step(cfg: TrainConfig, loss_cfg: LossConfig = LossConfig(), *,
 
     sp = _sp_row(sp_devices)
 
-    def gen_apply(gen, x, forward):
+    def gen_apply(gen, x, forward, layouts):
         if sp:
             fwd = functools.partial(banded_apply, gen, devices=sp,
                                     forward=forward)
         elif forward == "module":
             fwd = gen
         else:
-            fwd = functools.partial(generator_apply_packed, gen,
+            fwd = functools.partial(generator_apply_packed, layouts[gen],
+                                    dtype=gen.compute_dtype or torch.float32,
                                     encoder_fused=False)
         with trace.span("step.gen_forward"):
             if not remat:
@@ -185,9 +192,14 @@ def make_train_step(cfg: TrainConfig, loss_cfg: LossConfig = LossConfig(), *,
             img_size=cfg.img_size,
             on_card=batch["a"].device.type == "cuda")
         w = batch.get("weight")
+        layouts = {}
+        if forward == "packed" and not sp:
+            with trace.span("step.layout"):
+                layouts = {g: lay_out(g, dtype=torch.float32)
+                           for g in (state.g_a2b, state.g_b2a)}
         fake_a, fake_b, id_a, id_b, rec_a, rec_b = forward_all(
-            functools.partial(gen_apply, forward=forward), state.g_a2b,
-            state.g_b2a, batch, batched=batched_forwards)
+            functools.partial(gen_apply, forward=forward, layouts=layouts),
+            state.g_a2b, state.g_b2a, batch, batched=batched_forwards)
         with trace.span("step.gen_loss"):
             args = gather(batch["a"], batch["b"], fake_a, fake_b, rec_a,
                           rec_b, id_a, id_b, state.d_a(fake_a),
@@ -197,7 +209,7 @@ def make_train_step(cfg: TrainConfig, loss_cfg: LossConfig = LossConfig(), *,
         opts = (state.opt_g, state.opt_d_a, state.opt_d_b)
         with trace.span("step.gen_backward"):
             grads = [torch.autograd.grad(terms.total, _params(state.opt_g))]
-        del args, id_a, id_b, rec_a, rec_b
+        del args, id_a, id_b, rec_a, rec_b, layouts
 
         fake_a, fake_b = fake_a.detach(), fake_b.detach()
         with trace.span("step.disc"):
