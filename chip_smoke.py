@@ -202,6 +202,17 @@ drives the serving path the way a user does, at full model width:
      NM_PREDICT_TOL_HU, slices/s; one step and one prediction of
      UNet3DLight.
 
+  13. the masking CLI's in-process segmenter (infer/segment.py) at
+     TotalSegmentator's 3d_fullres widths (6 stages of 32 to 320
+     channels, 25 classes, 128^3 patches, 4 a forward, bf16): K2's 3-D
+     route (instance_norm3d) against its plain version at (4, 128, 128,
+     128, 32), (4, 8, 8, 8, 320) and (4, 4, 4, 4, 320), bf16, affine,
+     LeakyReLU 0.01 (1 bf16 ulp), its CUDA-event time beside its bytes
+     bound; then one 248-slice 512^2 phantom patient (0.7 mm pixels, 1 mm
+     slices: 165 x 239 x 239 at 1.5 mm, 18 patches) after a warm-up, the
+     launch counter reset just before it: 22 K2 3-D launches a forward (5
+     forwards) and no 2-D K2 launch, uint8 labels at the series grid below
+     25, and the patient's wall time;
   10t. the data-parallel training step: two ranks on this card over gloo
      (NCCL refuses two ranks on one device), spawned by
      ``parallel.launch`` and each taking 4 rows of phase 7's tree, against
@@ -3639,6 +3650,117 @@ DP_UPDATE_REL = 0.25
 DP_SERVE_SHARE = 0.9999
 
 
+# Phase 13: the masking CLI's segmenter at TotalSegmentator's 3d_fullres
+# widths (nnU-Net's default plan for CT at 1.5 mm; 25 classes, the organs
+# part), bf16, SEG_PATCH_BATCH patches a forward, torch's default init
+SEG_PLAN = {"input_channels": 1, "features": [32, 64, 128, 256, 320, 320],
+            "kernel_sizes": [[3, 3, 3]] * 6,
+            "strides": [[1, 1, 1]] + [[2, 2, 2]] * 5,
+            "n_conv_per_stage": [2] * 6, "n_conv_per_stage_decoder": [2] * 5,
+            "classes": 25, "patch_size": [128, 128, 128],
+            "spacing": [1.5, 1.5, 1.5],
+            "normalization": {"lower": -1000.0, "upper": 1500.0,
+                              "mean": 50.0, "std": 350.0},
+            "step": 0.5}
+SEG_PATCH_BATCH = 4
+SEG_NORMS_PER_FORWARD = 22    # 6 encoder and 5 decoder stages, 2 norms each
+SEG_SLOPE = 0.01
+# 248 slices at 1 mm of 512^2 at 0.7 mm: 165 x 239 x 239 at 1.5 mm, whose
+# origins at step 0.5 are 2 x 3 x 3 = 18 patches, 5 forwards
+SEG_SLICES, SEG_SPACING, SEG_PATCHES = 248, (1.0, 0.7, 0.7), 18
+# K2 3-D (label, shape) at a forward of 4 patches: stage 0 and decoder
+# stage 0 (the most bytes), the 8^3 and 4^3 stages at 320 channels (the
+# fewest voxels a channel)
+K2_3D_CASES = (("128^3 x 32", (SEG_PATCH_BATCH, 128, 128, 128, 32)),
+               ("8^3 x 320", (SEG_PATCH_BATCH, 8, 8, 8, 320)),
+               ("4^3 x 320", (SEG_PATCH_BATCH, 4, 4, 4, 320)))
+
+
+def in3d_bound(shape, itemsize: int) -> dict:
+    """K2 3-D's bound: x read once, the output written once, 10 fp32
+    operations an element (the norm's 8, the affine and the slope)."""
+    inner = float(np.prod(shape))
+    return bound(2 * inner * itemsize, fp32=10 * inner)
+
+
+def check_instance_norm3d(k2, dev, records):
+    """Phase 13: K2's 3-D route against its plain version at the
+    segmenter's shapes, bf16, affine, LeakyReLU SEG_SLOPE (the K2 bf16
+    tolerance: one bf16 ulp), timed beside its bytes bound."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    atol, rtol = TOL[("k2", "bfloat16")]
+    failures = []
+    for name, shape in K2_3D_CASES:
+        c = shape[-1]
+        x = k2_input(shape, gen, dev).to(torch.bfloat16)
+        w = 1 + 0.3 * torch.randn(c, generator=gen, device=dev)
+        b = 0.2 * torch.randn(c, generator=gen, device=dev)
+        kernel = lambda: k2.instance_norm3d(x, w, b, negative_slope=SEG_SLOPE)
+        plain = lambda: k2.instance_norm3d_plain(x, w, b,
+                                                 negative_slope=SEG_SLOPE)
+        ok, emax, emean = compare(kernel(), plain(), atol, rtol)
+        ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 20)
+        bnd = in3d_bound(shape, x.element_size())
+        log(f"K2 3-D {name} {shape} bf16 affine slope {SEG_SLOPE}: "
+            f"max|d|={emax:.3e} mean|d|={emean:.3e} (atol {atol}, rtol "
+            f"{rtol}) kernel {ms:.4f} ms = {bnd['bound_ms'] / ms:.0%} of its "
+            f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), plain "
+            f"{plain_ms:.4f} ms {'ok' if ok else 'FAIL'}")
+        records[("k2_3d", name)] = dict(max_abs_err=emax, ms=ms,
+                                        plain_ms=plain_ms, bound=bnd)
+        if not ok:
+            failures.append(f"K2 3-D {name}")
+        del x
+    torch.cuda.empty_cache()
+    if failures:
+        fail(f"kernel disagrees with its plain version: {failures}")
+
+
+def run_segmenter_phase(k2, dev, records):
+    """Phase 13: one full-width patient through the masking CLI's
+    segmenter; every norm a K2 3-D launch."""
+    import torch
+
+    from ducosy_tpu_torch.infer.segment import Segmenter
+    from ducosy_tpu_torch.models.nnunet import PlainConvUNet
+
+    torch.manual_seed(SEED + 13)
+    segmenter = Segmenter(PlainConvUNet(SEG_PLAN), SEG_PLAN, device=dev,
+                          patch_batch=SEG_PATCH_BATCH)
+    hu = (chest_phantom(SEG_SLICES, SIZE, SEED + 13).astype(np.int32)
+          - 1024).astype(np.int16)
+    segmenter.download(segmenter.segment_async(hu, SEG_SPACING))  # warm-up
+    torch.cuda.synchronize()
+    k2.instance_norm3d.launches = 0
+    flat = k2.instance_norm.launches
+    t0 = time.perf_counter()
+    labels = segmenter.download(segmenter.segment_async(hu, SEG_SPACING))
+    took = time.perf_counter() - t0
+    forwards = -(-SEG_PATCHES // SEG_PATCH_BATCH)
+    want = SEG_NORMS_PER_FORWARD * forwards
+    got = k2.instance_norm3d.launches
+    log(f"segmenter: {SEG_SLICES}-slice {SIZE}^2 patient, {SEG_PATCHES} "
+        f"patches in {forwards} forwards of up to {SEG_PATCH_BATCH}: "
+        f"{took:.3f} s ({SEG_SLICES / took:.1f} slices/s), K2 3-D launches "
+        f"{got} (want {want}), 2-D K2 launches "
+        f"{k2.instance_norm.launches - flat} (want 0), labels "
+        f"{labels.dtype} {labels.shape} max {labels.max()}")
+    if got != want or k2.instance_norm.launches != flat:
+        fail(f"segmenter: K2 3-D launches {got}, 2-D "
+             f"{k2.instance_norm.launches - flat}; want {want} and 0: a "
+             "norm left K2's 3-D route")
+    if labels.dtype != np.uint8 or labels.shape != hu.shape or \
+            labels.max() >= SEG_PLAN["classes"]:
+        fail(f"segmenter: labels {labels.dtype} {labels.shape} max "
+             f"{labels.max()}; want uint8 {hu.shape} below "
+             f"{SEG_PLAN['classes']}")
+    records["seg_launches"] = got
+    del segmenter
+    torch.cuda.empty_cache()
+
+
 def rel_l2(got: dict, ref: dict) -> float:
     """Relative L2 error over the weight tensors of NETS-keyed arrays."""
     num = den = 0.0
@@ -4181,6 +4303,12 @@ def kernel_records(records) -> list:
          pallas + "instance_norm.py:206", train["instance_norm"],
          k2_rec("train"), k2_rec("train")["bound"], None),
     ]
+    # K2's 3-D route: the launches of phase 13's patient (every norm of its
+    # 5 forwards), at three of the segmenter's norm shapes; no TPU kernel
+    rows += [(f"instance_norm3d (K2 3-D at {name})", "instance_norm.cu",
+              None, records["seg_launches"], records[("k2_3d", name)],
+              records[("k2_3d", name)]["bound"], None)
+             for name, _ in K2_3D_CASES]
     rows.append(
         # the conv launch inside K1, K6, K7, K8, P1 and P2, alone
         ("conv3x3 (shared loop)", "conv3x3.cuh", pallas + "conv_in.py:59",
@@ -4314,6 +4442,8 @@ def main() -> None:
             phase("9e", run_calculate_phase, dev, Path(gen_dir))
             phase("11", run_masking_phase, dev, Path(gen_dir))
             phase("12", run_nmodel_phase, dev, Path(gen_dir))
+        phase("13 K2 3-D", check_instance_norm3d, k2, dev, records)
+        phase("13", run_segmenter_phase, k2, dev, records)
         data = Path(run_dir, "data")
         phase("10t", run_dp_training_phase, [dev, dev], "gloo", data,
               "10t training")

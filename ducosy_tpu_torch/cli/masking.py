@@ -12,7 +12,22 @@ cardiac/vascular exclusion mask from the heart-cleaned
 sets those pixels to 9999 in the NCCT/CECT/sCECT triplets under
 ``<output>/masked/<dataset>/<patient>/{<ncct>, <cect>, generated}``, the
 tree ``calculate --mask`` scores. When the binary is absent the generate
-stage reports it for each patient and exits cleanly. Host work only.
+stage reports it for each patient and exits cleanly.
+
+``--segmenter native --nnunet_dir DIR`` runs the generate stage in this
+process instead: the nnU-Net model in DIR (the ``<trainer>__<plans>__
+3d_fullres`` folder with ``plans.json``, ``dataset.json`` and
+``fold_*/checkpoint_final.pth``; ``models/nnunet.py``) on one card
+(``--device`` gpu or cuda; cpu runs the plain path in float32), four
+patches a forward through ``infer/segment.py``, patient i launched before
+patient i - 1 is written. It writes the same ``<patient>.nii``
+multilabel volume that the masking stage reads, in the network's own label
+values. Those must be TotalSegmentator's merged ``--ml`` IDs: the masking
+stage's 34 IDs come from two of the total task's five part networks, so
+one part network does not hold them, and the backend then fails every
+patient with that reason (``masks/totalseg.label_map_problem``).
+``--segmenter totalsegmentator`` (the subprocess) stays the default: no
+weights ship with the repository.
 """
 import argparse
 import glob
@@ -34,13 +49,41 @@ def parse_args(argv=None):
     p.add_argument("--device", type=str, default="gpu")
     p.add_argument("--stage", type=str, default="masking",
                    choices=["generate", "masking", "all"])
-    return p.parse_args(argv)
+    p.add_argument("--segmenter", type=str, default="totalsegmentator",
+                   choices=["totalsegmentator", "native"],
+                   help="the TotalSegmentator subprocess, or the nnU-Net "
+                        "network of --nnunet_dir in process")
+    p.add_argument("--nnunet_dir", type=str, default=None,
+                   help="trained nnU-Net model folder (--segmenter native) "
+                        "whose labels are TotalSegmentator's merged --ml "
+                        "IDs; one part network of the total task does not "
+                        "hold the masking stage's 34 IDs and is refused")
+    args = p.parse_args(argv)
+    if args.segmenter == "native" and not args.nnunet_dir:
+        p.error("--segmenter native needs --nnunet_dir")
+    return args
+
+
+def native_segmenter(args):
+    """The ``Segmenter`` of ``--nnunet_dir`` on ``--device``'s card (bf16)
+    or the CPU (float32)."""
+    import torch
+
+    from ducosy_tpu_torch.infer.segment import Segmenter
+    from ducosy_tpu_torch.models.nnunet import load_nnunet
+
+    device = "cpu" if args.device == "cpu" else "cuda"
+    net, plan = load_nnunet(args.nnunet_dir)
+    return Segmenter(net, plan, device=device,
+                     dtype=torch.float32 if device == "cpu"
+                     else torch.bfloat16)
 
 
 def generate(args):
     """Per patient: DICOM->NIfTI + TotalSegmentator (masking.py:301-380)."""
     from ducosy_tpu_torch.masks.totalseg import (register_signal_handlers,
-                                           segment_patient)
+                                                 segment_patient,
+                                                 segment_patients)
 
     # SIGINT/SIGTERM + atexit teardown of the external segmentation fleet
     # (masking.py:71-95): the parent exits cleanly (terminating the pool),
@@ -60,6 +103,12 @@ def generate(args):
             tasks.append((os.path.join(pdir, args.cect_folder),
                           os.path.join(work, pid),
                           os.path.join(mask, pid), args.device))
+    if args.segmenter == "native":
+        print(f"segmenting {len(tasks)} patients (in process, "
+              f"{args.nnunet_dir})")
+        for pid, ok, err in segment_patients(tasks, native_segmenter(args)):
+            print(f"  {pid}: {'OK' if ok else f'FAILED — {err}'}")
+        return
     print(f"segmenting {len(tasks)} patients "
           f"({args.batch_size} parallel workers)")
     # spawn, not fork: workers start clean, as the JAX CLI's

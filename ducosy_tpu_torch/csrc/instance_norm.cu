@@ -217,6 +217,89 @@ int instance_norm(const T* x, void* out, float* pmean, float* pm2,
   return 0;
 }
 
+// ---- the 3-D route: a channels-last volume, affine, LeakyReLU
+
+// Apply of the 3-D route: grid (blocks, gz) over the samples of x (gz, m, c),
+// m = d * h * w pixels of c channels (c a multiple of 32); y = ((x - mean) *
+// rstd) * gamma + beta, then LeakyReLU at `slope`, rounded to the io dtype
+// in place of x's layout (out (gz, m, c)). Without an affine gamma and beta
+// read as 1 and 0 (the same float values as no affine); slope 0 is ReLU,
+// slope 1 no activation. A kernel of its own: the 2-D route's in_apply is
+// not touched.
+template <typename T>
+__global__ void __launch_bounds__(IN_THREADS, 2)
+in_apply3d(const T* __restrict__ x, const float* gmean, const float* grstd,
+           const float* __restrict__ gamma, const float* __restrict__ beta,
+           T* __restrict__ out, int m, int c, float slope) {
+  constexpr int V = Io<T>::V, U = IN_UNROLL;
+  pdl_wait();        // the statistics grid has completed
+  pdl_trigger();
+  const Lanes<T> ln(c);
+  if (!ln.active()) return;
+  const size_t ni = blockIdx.y;
+  float mu[V], rs[V], g[V], b[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int ch = ln.lane * V + j;
+    mu[j] = gmean[ni * c + ch];
+    rs[j] = grstd[ni * c + ch];
+    g[j] = gamma ? gamma[ch] : 1.f;
+    b[j] = beta ? beta[ch] : 0.f;
+  }
+  const T* xs = x + ni * m * c + ln.lane * V;
+  T* os = out + ni * m * c + ln.lane * V;
+  const int chunk = ln.rows * U;
+  for (int base = blockIdx.x * chunk; base < m; base += gridDim.x * chunk) {
+    uint4 raw[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int p = base + u * ln.rows + ln.row;
+      if (p < m)
+        raw[u] = __ldcs(reinterpret_cast<const uint4*>(xs + (size_t)p * c));
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int p = base + u * ln.rows + ln.row;
+      if (p >= m) continue;
+      float v[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float y = (Io<T>::at(raw[u], j) - mu[j]) * rs[j] * g[j] + b[j];
+        v[j] = y > 0.f ? y : y * slope;
+      }
+      __stcs(reinterpret_cast<uint4*>(os + (size_t)p * c), Io<T>::pack(v));
+    }
+  }
+}
+
+// The 3-D route over the batch in groups of `group` samples, on K2's plan
+// and its statistics launch (in_stats over m pixels), then in_apply3d.
+template <typename T>
+int instance_norm3d(const T* x, T* out, const float* gamma,
+                    const float* beta, float* pmean, float* pm2,
+                    float* gmean, float* grstd, int* done, int n, int m,
+                    int c, float slope, float eps, int group, int tiles,
+                    int tile, int blocks, cudaStream_t s) {
+  const cudaError_t e = cudaMemsetAsync(done, 0, n * sizeof(int), s);
+  if (e != cudaSuccess) return (int)e;
+  const size_t xs = (size_t)m * c;
+  bool pdl = false;
+  for (int g0 = 0; g0 < n; g0 += group) {
+    const int gz = min(group, n - g0);
+    int st = launch(in_stats<T>, dim3(tiles, gz), s, pdl, x + g0 * xs,
+                    pmean + (size_t)g0 * tiles * c,
+                    pm2 + (size_t)g0 * tiles * c, gmean + (size_t)g0 * c,
+                    grstd + (size_t)g0 * c, done + g0, m, c, tile, 1, eps);
+    if (st) return st;
+    st = launch(in_apply3d<T>, dim3(max(1, 2 * blocks / gz), gz), s, true,
+                x + g0 * xs, gmean + (size_t)g0 * c, grstd + (size_t)g0 * c,
+                gamma, beta, out + g0 * xs, m, c, slope);
+    if (st) return st;
+    pdl = true;
+  }
+  return 0;
+}
+
 // ---- for the by-parts reading only
 
 // The original three launches (common.cuh: 128-pixel x 64-channel tiles, a
@@ -309,4 +392,29 @@ extern "C" int ducosy_instance_norm_probe(
   return probe<float>(static_cast<const float*>(x), static_cast<float*>(out),
                       pmean, pm2, mean, rstd, done, n, h, w, c, relu, pad,
                       design, parts, group, tiles, tile, blocks, s);
+}
+
+// The 3-D route: x (n, m, c) channels-last, m = d * h * w -> out (n, m, c)
+// in the io dtype: IN over m, optional per-channel affine (gamma, beta:
+// c floats each, or null), LeakyReLU at `slope`. The plan and scratch as
+// ducosy_instance_norm's (phases 1). Returns the CUDA error of the first
+// failing call, or 0. Launches on `stream` and does not synchronize.
+extern "C" int ducosy_instance_norm3d(const void* x, void* out,
+                                      const float* gamma, const float* beta,
+                                      float* pmean, float* pm2, float* gmean,
+                                      float* grstd, int* done, int n, int m,
+                                      int c, float slope, float eps,
+                                      int group, int tiles, int tile,
+                                      int blocks, int is_bf16, void* stream) {
+  using namespace ducosy;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return instance_norm3d<bf16>(static_cast<const bf16*>(x),
+                                 static_cast<bf16*>(out), gamma, beta, pmean,
+                                 pm2, gmean, grstd, done, n, m, c, slope, eps,
+                                 group, tiles, tile, blocks, s);
+  return instance_norm3d<float>(static_cast<const float*>(x),
+                                static_cast<float*>(out), gamma, beta, pmean,
+                                pm2, gmean, grstd, done, n, m, c, slope, eps,
+                                group, tiles, tile, blocks, s);
 }

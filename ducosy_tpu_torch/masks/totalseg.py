@@ -12,6 +12,13 @@ its nnU-Net internals are out of scope; this module provides:
                          binary returns a clear (ok=False, reason) instead
                          of crashing
   segment_patient      — convert + segment one patient (worker body)
+  segment_patients     — the in-process backend: the nnU-Net network of a
+                         ``Segmenter`` (infer/segment.py) on the card in
+                         place of the subprocess, labels written as its
+                         ``--ml`` output, for a network whose labels are
+                         the merged map's IDs (``label_map_problem``);
+                         patient i launched before i - 1 is downloaded and
+                         written
   build_exclusion_mask — select the 34 cardiac/vascular/rib label IDs,
                          fill + 2px dilate each label's rim, then a final
                          4px rim dilation (masking.py:390,455-512), by
@@ -171,6 +178,75 @@ def run_totalsegmentator(nifti_path: str, out_path: str, *,
         return False, "TotalSegmentator timeout"
     finally:
         _unregister_pid(process.pid)
+
+
+def label_map_problem(classes: int) -> Optional[str]:
+    """Why a network of ``classes`` labels (0 .. classes - 1, as nnU-Net
+    numbers them) cannot stand in for ``TotalSegmentator --ml``, or None.
+    ``build_exclusion_mask`` selects ``MASK_TARGET_LABELS``, IDs of
+    TotalSegmentator's merged map that come from two of its five part
+    networks (the organs part's 1-24 and the cardiac part's 51-68), so a
+    network's own labels are that map only where they reach every one of
+    them. One part network does not: the organs part's labels lack the
+    heart and the vessels, and the cardiac part's 1-18 would be read as
+    organs. (Names are not checked: TotalSegmentator's class map is not in
+    the repository.)"""
+    missing = [i for i in MASK_TARGET_LABELS if i >= classes]
+    if not missing:
+        return None
+    return (f"the network's labels 0-{classes - 1} do not reach the merged "
+            f"TotalSegmentator IDs {missing[0]}-{missing[-1]} that the "
+            "masking stage selects; one part network is not the --ml map")
+
+
+def segment_patients(tasks, segmenter):
+    """The in-process backend: each task's (``segment_patient``'s tuple)
+    CECT series through ``segmenter`` (an ``infer.segment.Segmenter``),
+    its labels written to ``<masked_patient_dir>.nii`` as (x, y, z) uint8
+    with the series' affine, as ``TotalSegmentator --ml`` writes them.
+    The series is read as the subprocess backend reads it:
+    ``dicom_to_nifti`` into the working folder (uncompressed), then that
+    file; the spacing is the NIfTI's. Patient i is launched before patient
+    i - 1 is downloaded and written, so the host's decode and write
+    overlap the card's work. Yields (patient id, ok, error) in order; a
+    patient already done is skipped. A network whose labels are not the
+    merged map (``label_map_problem``) fails every patient with the
+    reason, and nothing is written."""
+    from ducosy_tpu_torch.dicom.nifti import read_nifti, write_nifti
+
+    def finish(item):
+        pid, out_path, affine, seg = item
+        labels = segmenter.download(seg)
+        write_nifti(out_path, np.transpose(labels, (2, 1, 0)), affine)
+        return (pid, True, None)
+
+    refused = label_map_problem(segmenter.plan["classes"])
+    prev = None
+    for patient_dir, working, masked_patient_dir, _device in tasks:
+        pid = os.path.basename(os.path.dirname(patient_dir)) or \
+            os.path.basename(patient_dir)
+        out_path = f"{masked_patient_dir}.nii"
+        if os.path.exists(out_path):
+            yield (pid, True, None)
+            continue
+        if refused:
+            yield (pid, False, refused)
+            continue
+        os.makedirs(working, exist_ok=True)
+        nifti_path = os.path.join(working, "input.nii")
+        if not dicom_to_nifti(patient_dir, nifti_path):
+            yield (pid, False, "Failed to convert DICOM to NIfTI")
+            continue
+        data, affine = read_nifti(nifti_path)
+        # NIfTI holds (x, y, z); the segmenter takes (z, y, x)
+        spacing = [float(np.linalg.norm(affine[:3, i])) for i in (2, 1, 0)]
+        item = (pid, out_path, affine, segmenter.segment_async(
+            np.transpose(data, (2, 1, 0)).copy(), spacing))
+        if prev is not None:
+            yield finish(prev)
+        prev = item
+    if prev is not None:
+        yield finish(prev)
 
 
 def segment_patient(task) -> Tuple[str, bool, Optional[str]]:

@@ -13,6 +13,14 @@ serving path), and ``instance_norm_int8`` writes shifted-grid int8 for an
 int8 conv (each block's first norm of the tail trunk under quantized
 serving).
 
+K2's 3-D route, ``instance_norm3d``, is every norm of the nnU-Net
+``PlainConvUNet`` (``models/nnunet.py``): a contiguous channels-last volume
+(N, D, H, W, C), C a multiple of 32, taken as (N, D*H, W, C), with an
+optional per-channel affine and a LeakyReLU slope applied in the apply
+launch. It shares the statistics launch and the plan; its apply is a kernel
+of its own, so the 2-D route's launches are the code they were. It is
+counted apart, ``instance_norm3d.launches``.
+
 K2 is two launches: a block of the first reduces its tile of pixels x all
 channels, and the last block of a sample to finish merges the sample's
 tiles; the second normalizes. ``plan`` cuts the batch into the tiles from the
@@ -134,6 +142,9 @@ def _lib() -> ctypes.CDLL:
         [i] * 5 + [p]
     dll.ducosy_instance_norm_probe.restype = i
     dll.ducosy_instance_norm_probe.argtypes = [p] * 7 + [i] * 13 + [p]
+    dll.ducosy_instance_norm3d.restype = i
+    dll.ducosy_instance_norm3d.argtypes = [p] * 9 + [i] * 3 + [f, f] + \
+        [i] * 5 + [p]
     return dll
 
 
@@ -288,6 +299,92 @@ def instance_norm_int8(x: torch.Tensor, *, pad: int = 0,
 
 
 instance_norm_int8.launches = 0
+
+
+TILE_3D = 32   # the 3-D route's C must be a multiple
+
+
+def instance_norm3d_plain(x: torch.Tensor, weight: torch.Tensor | None = None,
+                          bias: torch.Tensor | None = None, *,
+                          negative_slope: float = 0.0,
+                          eps: float = EPS_INSTANCE_NORM) -> torch.Tensor:
+    """Plain PyTorch K2 3-D: IN of x (N, D, H, W, C) over D, H, W (fp32
+    centred statistics, biased variance), ``* weight + bias`` per channel
+    when given, LeakyReLU at ``negative_slope`` (0: ReLU, 1: none), rounded
+    to x's dtype once."""
+    x32 = x.to(torch.float32)
+    xc = x32 - x32.mean(dim=(1, 2, 3), keepdim=True)
+    y = xc * torch.rsqrt(xc.square().mean(dim=(1, 2, 3), keepdim=True) + eps)
+    if weight is not None:
+        y = y * weight.to(torch.float32)
+    if bias is not None:
+        y = y + bias.to(torch.float32)
+    return torch.where(y > 0, y, y * negative_slope).to(x.dtype)
+
+
+def _validate3d(x: torch.Tensor, weight, bias) -> None:
+    """Refuse what the 3-D route does not take, shape first, then the
+    device: a contiguous 5-D float32 or bfloat16 tensor, C a positive
+    multiple of 32 up to one block's 16-byte lanes, fp32 (C,) affine
+    vectors on x's device."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"instance_norm3d kernel: dtype {x.dtype} (float32 "
+                        "or bfloat16 only)")
+    if x.dim() != 5 or not x.is_contiguous():
+        raise ValueError("instance_norm3d kernel: needs a contiguous NDHWC "
+                         "tensor")
+    c = x.shape[-1]
+    if c % TILE_3D or c == 0:
+        raise ValueError(f"instance_norm3d kernel: C={c} must be a positive "
+                         f"multiple of {TILE_3D}")
+    cmax = IN_THREADS * 16 // x.element_size()
+    if c > cmax:
+        raise ValueError(f"instance_norm3d kernel: C={c} above {cmax} for "
+                         f"{x.dtype}")
+    for name, v in (("weight", weight), ("bias", bias)):
+        if v is not None and (tuple(v.shape) != (c,) or v.dtype !=
+                              torch.float32 or v.device != x.device
+                              or not v.is_contiguous()):
+            raise ValueError(f"instance_norm3d kernel: {name} "
+                             f"{tuple(v.shape)} {v.dtype} on {v.device}; "
+                             f"expected a contiguous ({c},) float32 tensor "
+                             f"on {x.device}")
+    if x.device.type != "cuda":
+        raise ValueError(f"instance_norm3d kernel: tensor on {x.device}; the "
+                         "kernel takes CUDA tensors (CPU runs the plain path)")
+
+
+def instance_norm3d(x: torch.Tensor, weight: torch.Tensor | None = None,
+                    bias: torch.Tensor | None = None, *,
+                    negative_slope: float = 0.0,
+                    eps: float = EPS_INSTANCE_NORM) -> torch.Tensor:
+    """IN (+affine) (+LeakyReLU) of a channels-last volume x (N, D, H, W,
+    C): K2's 3-D route for a CUDA tensor, the plain version for a CPU
+    tensor. The kernel sees x as (N, D*H, W, C) on K2's plan."""
+    if x.device.type == "cpu":
+        return instance_norm3d_plain(x, weight, bias,
+                                     negative_slope=negative_slope, eps=eps)
+    _validate3d(x, weight, bias)
+    n, d, h, w, c = x.shape
+    pl = device_plan(x.view(n, d * h, w, c))
+    part, stats, done = _scratch(x, pl.tiles)
+    out = torch.empty_like(x)
+    ptr = lambda v: None if v is None else v.data_ptr()
+    dll = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        status = dll.ducosy_instance_norm3d(
+            x.data_ptr(), out.data_ptr(), ptr(weight), ptr(bias),
+            part[0].data_ptr(), part[1].data_ptr(), stats[0].data_ptr(),
+            stats[1].data_ptr(), done.data_ptr(), n, d * h * w, c,
+            float(negative_slope), float(eps), pl.group, pl.tiles, pl.tile,
+            pl.blocks, int(x.dtype == torch.bfloat16), stream)
+    _build.check(dll, status, "instance_norm3d kernel launch")
+    instance_norm3d.launches += 1
+    return out
+
+
+instance_norm3d.launches = 0
 
 
 def instance_norm_bwd_plain(x: torch.Tensor, g: torch.Tensor, *,
